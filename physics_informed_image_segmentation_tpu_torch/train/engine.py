@@ -1,0 +1,322 @@
+"""Training engine: train and eval epochs, early stopping, the stage loop.
+
+Counterpart of ``physics_informed_image_segmentation_tpu/train/engine.py``.
+An epoch is a Python loop over the ``(idx, valid)`` plan of
+:func:`..data.pipeline.epoch_batch_indices`: each batch is gathered on the
+device, padded slots are masked out of the loss and metrics, and the
+per-batch results stay on the device until one host sync at the end of
+the epoch.
+
+Metric semantics kept from the JAX package:
+  * train ``dice_score`` is the mean of per-sample Dice; validation
+    ``dice_score`` is the mean over batches of the global-batch Dice
+    (early stopping keys on the latter);
+  * losses are averaged per batch with equal batch weight, the ragged
+    final batch included;
+  * best-epoch tracking records metrics only: the returned model holds
+    the last epoch's weights.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..ops import metrics as M
+from ..utils.device import autocast
+from .objective import LossConfig, make_loss_and_components
+from .optim import AdamW
+
+__all__ = [
+    "TrainState",
+    "create_train_state",
+    "forward_nhwc",
+    "make_train_step_fn",
+    "make_train_epoch_fn",
+    "make_eval_epoch_fn",
+    "EarlyStopping",
+    "train_stage",
+]
+
+_LOSS_KEYS = ("loss", "dice_loss", "bce_loss", "pde_loss", "phase_field_loss")
+
+
+@dataclass
+class TrainState:
+    """The model (holding the parameters), its optimizer and the dropout
+    generator (on the model's device)."""
+
+    model: torch.nn.Module
+    optimizer: AdamW
+    dropout_generator: torch.Generator
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.count
+
+
+def create_train_state(
+    model: torch.nn.Module,
+    learning_rate: float,
+    weight_decay: float = 1e-5,
+    *,
+    dropout_seed: int = 0,
+) -> TrainState:
+    """A fresh AdamW over ``model``'s parameters, as each stage starts one."""
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device)
+    generator.manual_seed(dropout_seed)
+    optimizer = AdamW(list(model.parameters()), learning_rate, weight_decay)
+    return TrainState(model, optimizer, generator)
+
+
+def forward_nhwc(model, x: torch.Tensor, precision: str, generator=None) -> torch.Tensor:
+    """(B, H, W, C) images → (B, H, W, C_out) float32 probabilities.
+
+    With C = 1 the NHWC↔NCHW permutes are views.
+    """
+    with autocast(x.device, precision):
+        out = model(x.permute(0, 3, 1, 2), generator)
+    return out.permute(0, 2, 3, 1)
+
+
+def _sample_mask(valid: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(B,) validity → broadcastable mask over (B, H, W[, C])."""
+    return valid.reshape((valid.shape[0],) + (1,) * (ndim - 1))
+
+
+def _batch_metrics(pred, target, valid) -> dict:
+    """Per-sample Dice/IoU/Boundary-F1 sums over valid samples."""
+    p2 = pred[..., 0] if pred.dim() == 4 else pred
+    t2 = target[..., 0] if target.dim() == 4 else target
+    return {
+        "dice_sum": torch.sum(M.dice_score_per_sample(p2, t2) * valid),
+        "iou_sum": torch.sum(M.iou_score_per_sample(p2, t2) * valid),
+        "bf1_sum": torch.sum(M.boundary_f1_per_sample(p2, t2) * valid),
+        "n": torch.sum(valid),
+    }
+
+
+def _to_host(outs: list[dict]) -> dict:
+    """Stack per-batch scalars and bring them to the host in one sync."""
+    keys = list(outs[0])
+    stacked = torch.stack([torch.stack([o[k].float() for k in keys]) for o in outs])
+    cols = stacked.cpu().double()
+    return {k: cols[:, i] for i, k in enumerate(keys)}
+
+
+def _per_sample_means(cols: dict, out: dict, dice_key: str) -> None:
+    n = cols["n"].sum()
+    out[dice_key] = float(cols["dice_sum"].sum() / n)
+    out["iou_score"] = float(cols["iou_sum"].sum() / n)
+    out["boundary_f1_score"] = float(cols["bf1_sum"].sum() / n)
+
+
+def make_train_step_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
+                       precision: str = "f32"):
+    """``step(state, x, y, valid) -> (state, out)``: one optimizer step on
+    a (B, H, W, 1) batch; ``out`` holds device scalars."""
+    loss_fn = make_loss_and_components(loss_cfg)
+
+    def step(state: TrainState, x, y, valid):
+        state.model.train()
+        pred = forward_nhwc(state.model, x, precision, state.dropout_generator)
+        total, comps = loss_fn(pred, y, _sample_mask(valid, x.dim()))
+        grads = torch.autograd.grad(total, state.optimizer.params)
+        state.optimizer.step(grads)
+        out = {"loss": total.detach(), **{k: v.detach() for k, v in comps.items()}}
+        if compute_metrics:
+            out.update(_batch_metrics(pred.detach(), y, valid))
+        return state, out
+
+    return step
+
+
+def make_train_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
+                        precision: str = "f32"):
+    """``epoch_fn(state, images, masks, idx, valid) -> (state, metrics)``
+    with ``metrics`` host floats; ``idx``/``valid`` are (nb, B)."""
+    step = make_train_step_fn(loss_cfg, compute_metrics=compute_metrics, precision=precision)
+
+    def epoch_fn(state: TrainState, images, masks, idx, valid):
+        outs = []
+        for b in range(idx.shape[0]):
+            state, out = step(state, images[idx[b]], masks[idx[b]], valid[b])
+            outs.append(out)
+        cols = _to_host(outs)
+        results = {k: float(cols[k].mean()) for k in _LOSS_KEYS}
+        if compute_metrics:
+            _per_sample_means(cols, results, "dice_score")
+        return state, results
+
+    return epoch_fn
+
+
+def make_eval_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
+                       precision: str = "f32"):
+    """``epoch_fn(model, images, masks, idx, valid) -> metrics``: a
+    validation pass without gradients.  ``dice_score`` is the batch-mean
+    of the global thresholded Dice; ``iou_score`` / ``boundary_f1_score``
+    (and ``per_sample_dice``) are per-sample means."""
+    loss_fn = make_loss_and_components(loss_cfg)
+
+    @torch.no_grad()
+    def epoch_fn(model, images, masks, idx, valid):
+        model.eval()
+        outs = []
+        for b in range(idx.shape[0]):
+            x, y, valid_b = images[idx[b]], masks[idx[b]], valid[b]
+            pred = forward_nhwc(model, x, precision)
+            total, comps = loss_fn(pred, y, _sample_mask(valid_b, x.dim()))
+            p2, y2 = pred[..., 0], y[..., 0]
+            out = {"loss": total, **comps,
+                   "global_dice": M.dice_score(p2, y2, mask=_sample_mask(valid_b, p2.dim()))}
+            if compute_metrics:
+                out.update(_batch_metrics(pred, y, valid_b))
+            outs.append(out)
+        cols = _to_host(outs)
+        results = {k: float(cols[k].mean()) for k in _LOSS_KEYS}
+        results["dice_score"] = float(cols["global_dice"].mean())
+        if compute_metrics:
+            _per_sample_means(cols, results, "per_sample_dice")
+        return results
+
+    return epoch_fn
+
+
+class EarlyStopping:
+    """Patience counter on a monitored score."""
+
+    def __init__(self, patience: int = 10, min_delta: float = 1e-4, mode: str = "max"):
+        self.patience = patience
+        self.min_delta = min_delta
+        self.mode = mode
+        self.counter = 0
+        self.best_score: Optional[float] = None
+        self.best_epoch = 0
+        self.early_stop = False
+
+    def __call__(self, score: float, epoch: int) -> bool:
+        if self.best_score is None:
+            self.best_score = score
+            self.best_epoch = epoch
+            return False
+        if self.mode == "max":
+            improved = score > self.best_score + self.min_delta
+        else:
+            improved = score < self.best_score - self.min_delta
+        if improved:
+            self.best_score = score
+            self.best_epoch = epoch
+            self.counter = 0
+        else:
+            self.counter += 1
+            if self.counter >= self.patience:
+                self.early_stop = True
+        return self.early_stop
+
+
+def train_stage(
+    state: TrainState,
+    train_epoch_fn,
+    eval_epoch_fn,
+    train_data,
+    val_data,
+    *,
+    batch_size: int,
+    num_epochs: int,
+    stage_name: str,
+    shuffle_generator: torch.Generator,
+    early_stopping: Optional[EarlyStopping] = None,
+    verbose: bool = True,
+    csv_path=None,
+    timing_out: Optional[dict] = None,
+) -> tuple[TrainState, dict, int, list[dict]]:
+    """Host-side stage loop.  Returns
+    ``(state, best_metrics, best_epoch, all_epoch_metrics)``; the state is
+    the LAST epoch's.
+
+    Each epoch's shuffle is drawn from ``shuffle_generator``.
+    ``timing_out``, when given, receives ``epoch_seconds`` and
+    ``steady_state_images_per_sec`` (first epoch excluded: it includes
+    cuDNN's algorithm search and the kernels' first build).
+    """
+    from ..data.pipeline import epoch_batch_indices
+    from .csvlog import save_metrics_to_csv
+
+    best_val_dice = 0.0
+    best_epoch = 0
+    best_metrics: dict = {}
+    all_metrics: list[dict] = []
+    epoch_seconds: list[float] = []
+    device = train_data.device
+
+    val_idx, val_valid = epoch_batch_indices(val_data.n, batch_size, shuffle=False, device=device)
+
+    for epoch in range(num_epochs):
+        t_epoch = time.perf_counter()
+        idx, valid = epoch_batch_indices(
+            train_data.n, batch_size, shuffle=True, generator=shuffle_generator, device=device
+        )
+        state, train_results = train_epoch_fn(
+            state, train_data.images, train_data.masks, idx, valid
+        )
+        val_results = eval_epoch_fn(
+            state.model, val_data.images, val_data.masks, val_idx, val_valid
+        )
+        epoch_seconds.append(time.perf_counter() - t_epoch)
+
+        if val_results["dice_score"] > best_val_dice:
+            best_val_dice = val_results["dice_score"]
+            best_epoch = epoch + 1
+            best_metrics = {"train": train_results, "val": val_results}
+
+        epoch_metrics = {
+            "epoch": epoch + 1,
+            "train_loss": train_results["loss"],
+            "train_dice_loss": train_results.get("dice_loss", 0.0),
+            "train_bce_loss": train_results.get("bce_loss", 0.0),
+            "train_pde_loss": train_results.get("pde_loss", 0.0),
+            "train_phase_field_loss": train_results.get("phase_field_loss", 0.0),
+            "train_dice_score": train_results.get("dice_score", 0.0),
+            "train_iou_score": train_results.get("iou_score", 0.0),
+            "train_boundary_f1_score": train_results.get("boundary_f1_score", 0.0),
+            "val_loss": val_results["loss"],
+            "val_dice_score": val_results["dice_score"],
+            "val_dice_loss": val_results.get("dice_loss", 0.0),
+            "val_bce_loss": val_results.get("bce_loss", 0.0),
+            "val_pde_loss": val_results.get("pde_loss", 0.0),
+            "val_phase_field_loss": val_results.get("phase_field_loss", 0.0),
+            "val_iou_score": val_results.get("iou_score", 0.0),
+            "val_boundary_f1_score": val_results.get("boundary_f1_score", 0.0),
+        }
+        all_metrics.append(epoch_metrics)
+        if csv_path is not None:
+            save_metrics_to_csv(all_metrics, csv_path)
+
+        if verbose:
+            print(f"\n{stage_name} - Epoch {epoch + 1}/{num_epochs}")
+            print(f"  Train Loss: {train_results['loss']:.6f}")
+            print(f"    - Dice Loss: {train_results['dice_loss']:.6f}")
+            print(f"    - BCE Loss: {train_results['bce_loss']:.6f}")
+            if train_results.get("pde_loss", 0.0) != 0.0:
+                print(f"    - PDE Loss: {train_results['pde_loss']:.6f}")
+            print(f"  Val Loss: {val_results['loss']:.6f}")
+            print(f"  Val Dice Score: {val_results['dice_score']:.6f}")
+
+        if early_stopping is not None and early_stopping(val_results["dice_score"], epoch + 1):
+            if verbose:
+                print(f"\nEarly stopping triggered at epoch {epoch + 1}")
+                print(f"Best validation Dice score: {best_val_dice:.6f} at epoch {best_epoch}")
+            break
+
+    if timing_out is not None:
+        steady = epoch_seconds[1:] if len(epoch_seconds) > 1 else epoch_seconds
+        timing_out["epoch_seconds"] = epoch_seconds
+        timing_out["steady_state_images_per_sec"] = (
+            train_data.n / (sum(steady) / len(steady)) if steady else 0.0
+        )
+    return state, best_metrics, best_epoch, all_metrics
