@@ -1,10 +1,11 @@
-"""PyTorch/CUDA port of physics_informed_image_segmentation_tpu.
+"""PyTorch/CUDA port of the JAX package ``physics_informed_image_segmentation_tpu``.
 
 Two-stage PDE-regularised U-Net training for cell segmentation on an
-NVIDIA GPU: the same model, objective, metrics and pipeline as the JAX
-package, with the fused physics-loss kernel written by hand in CUDA
-(``csrc/physics_sums.cu``).  Entry points run on CUDA unless they are
-given ``device="cpu"``.
+NVIDIA GPU: the same model, objective, metrics, optimizers and pipeline
+as the JAX package, with the fused physics-loss kernel and the fused
+AdamW written by hand in CUDA (``csrc/physics_sums.cu``,
+``csrc/adamw.cu``), and train-state checkpoints with resume.  Entry
+points run on CUDA unless they are given ``device="cpu"``.
 """
 
 from .models import UNet, count_parameters  # noqa: F401

@@ -1,9 +1,10 @@
 """Train CLI of the PyTorch port: ``python -m physics_informed_image_segmentation_tpu_torch``.
 
 Takes the flags of the repository's ``main.py`` (names, defaults and
-help strings), except the train-state checkpoint flags, which this port
-does not have yet.  ``--physics-backend`` takes auto|cuda|torch and
-``--device`` picks the device (CUDA by default).
+help strings).  ``--physics-backend`` takes auto|cuda|torch and
+``--device`` picks the device (CUDA by default).  To make a run
+resumable, pass ``--checkpoint-every N``; after a crash, run the same
+command again with ``--resume`` added.
 
 NOTE on --early-stopping-patience: the CLI default is 5 while the help
 text and train() say 10, as in ``main.py``.
@@ -88,6 +89,23 @@ def main(argv=None):
         help="U-Net base channel count (default: 64, the reference architecture)",
     )
     parser.add_argument(
+        "--checkpoint-every", type=int, default=0,
+        help="Write a full train-state checkpoint every N epochs "
+             "under {models}/checkpoints/ (default: 0 = off)",
+    )
+    parser.add_argument(
+        "--checkpoint-keep", type=int, default=2,
+        help="Retain only the newest N train-state checkpoints per stage "
+             "(default: 2; 0 = keep all — each is ~250 MB at base-channels 64)",
+    )
+    parser.add_argument(
+        "--resume", action="store_true",
+        help="Continue an interrupted run in the same output/models dirs: "
+             "completed stages are skipped, a partial stage restarts from "
+             "its latest checkpoint and continues its CSV in place "
+             "(bit-identical to an uninterrupted run at equal precision)",
+    )
+    parser.add_argument(
         "--device", type=str, default="cuda",
         help="Device to train on (default: cuda; 'cpu' runs the plain PyTorch path)",
     )
@@ -112,6 +130,9 @@ def main(argv=None):
         physics_backend=args.physics_backend,
         make_plots=not args.no_plots,
         base_channels=args.base_channels,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_keep=args.checkpoint_keep or None,
+        resume=args.resume,
         device=args.device,
     )
 

@@ -4,6 +4,7 @@ from .coco import CocoSegmentationSource, rasterize_polygons  # noqa: F401
 from .pipeline import (  # noqa: F401
     DeviceDataset,
     epoch_batch_indices,
+    fold_seed,
     num_batches,
     subset_fraction_indices,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "rasterize_polygons",
     "DeviceDataset",
     "epoch_batch_indices",
+    "fold_seed",
     "num_batches",
     "subset_fraction_indices",
     "make_blobs",

@@ -17,6 +17,7 @@ import torch
 
 __all__ = [
     "DeviceDataset",
+    "fold_seed",
     "num_batches",
     "epoch_batch_indices",
     "subset_fraction_indices",
@@ -52,6 +53,13 @@ class DeviceDataset:
     def select(self, indices) -> "DeviceDataset":
         idx = torch.as_tensor(np.asarray(indices), dtype=torch.long, device=self.device)
         return DeviceDataset(self.images[idx], self.masks[idx])
+
+
+def fold_seed(*keys: int) -> int:
+    """One 32-bit seed from integer keys (NumPy's ``SeedSequence``): the
+    seed of one named random stream of a run, as ``jax.random.fold_in``
+    derives keys in the JAX package."""
+    return int(np.random.SeedSequence([int(k) for k in keys]).generate_state(1)[0])
 
 
 def num_batches(n: int, batch_size: int) -> int:

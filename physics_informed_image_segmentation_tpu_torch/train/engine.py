@@ -15,10 +15,17 @@ Metric semantics kept from the JAX package:
     final batch included;
   * best-epoch tracking records metrics only: the returned model holds
     the last epoch's weights.
+
+A stage can write full train-state checkpoints and resume from one: each
+epoch's shuffle is drawn from a generator seeded by (shuffle seed,
+epoch), and the dropout generator's state travels in the checkpoint, so a
+resumed stage is bit-identical to an uninterrupted one.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -27,8 +34,9 @@ import torch
 
 from ..ops import metrics as M
 from ..utils.device import autocast
+from .adamw_kernel import FusedAdamW
 from .objective import LossConfig, make_loss_and_components
-from .optim import AdamW
+from .optim import AdamW, FlatAdamW, GroupedAdamW, LowPrecisionAdamW
 
 __all__ = [
     "TrainState",
@@ -58,19 +66,48 @@ class TrainState:
         return self.optimizer.count
 
 
+_OPTIMIZERS = {
+    "adamw": AdamW,
+    "flat_adamw": FlatAdamW,
+    "grouped_adamw": GroupedAdamW,
+    "pallas_adamw": FusedAdamW,
+    "bf16m_adamw": functools.partial(LowPrecisionAdamW, m_dtype=torch.bfloat16),
+    "bf16mv_adamw": functools.partial(LowPrecisionAdamW, m_dtype=torch.bfloat16,
+                                      v_dtype=torch.bfloat16),
+}
+
+
 def create_train_state(
     model: torch.nn.Module,
     learning_rate: float,
     weight_decay: float = 1e-5,
     *,
+    optimizer: str = "adamw",
     dropout_seed: int = 0,
 ) -> TrainState:
-    """A fresh AdamW over ``model``'s parameters, as each stage starts one."""
+    """A fresh optimizer over ``model``'s parameters, as each stage starts one.
+
+    ``optimizer`` takes the JAX package's names:
+
+    * ``"adamw"``: :class:`.optim.AdamW`, optax's AdamW (the default);
+    * ``"flat_adamw"`` / ``"grouped_adamw"``: the same update with flat
+      moment storage for all / the small parameters (bit-identical);
+    * ``"pallas_adamw"``: the same update as one hand-written CUDA kernel
+      launch a step on the GPU (:mod:`.adamw_kernel`; bit-identical);
+    * ``"bf16m_adamw"`` / ``"bf16mv_adamw"``: m / m and v stored in
+      bfloat16, computed in float32 (an approximation).
+    """
+    if optimizer not in _OPTIMIZERS:
+        raise ValueError(
+            f"unknown optimizer {optimizer!r}; expected 'adamw', "
+            "'flat_adamw', 'grouped_adamw', 'pallas_adamw', "
+            "'bf16m_adamw' or 'bf16mv_adamw'"
+        )
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
     generator.manual_seed(dropout_seed)
-    optimizer = AdamW(list(model.parameters()), learning_rate, weight_decay)
-    return TrainState(model, optimizer, generator)
+    opt = _OPTIMIZERS[optimizer](list(model.parameters()), learning_rate, weight_decay)
+    return TrainState(model, opt, generator)
 
 
 def forward_nhwc(model, x: torch.Tensor, precision: str, generator=None) -> torch.Tensor:
@@ -219,6 +256,41 @@ class EarlyStopping:
         return self.early_stop
 
 
+def _nested_metrics_from_row(row: dict) -> dict:
+    """Invert a flat epoch-CSV row into the ``{"train": {...}, "val": {...}}``
+    shape ``train_stage`` tracks for the best epoch (resume replay)."""
+    train: dict = {}
+    val: dict = {}
+    for k, v in row.items():
+        if k.startswith("train_"):
+            train[k[len("train_"):]] = float(v)
+        elif k.startswith("val_"):
+            val[k[len("val_"):]] = float(v)
+    return {"train": train, "val": val}
+
+
+def _epoch_row(epoch: int, train_results: dict, val_results: dict) -> dict:
+    return {
+        "epoch": epoch,
+        "train_loss": train_results["loss"],
+        "train_dice_loss": train_results.get("dice_loss", 0.0),
+        "train_bce_loss": train_results.get("bce_loss", 0.0),
+        "train_pde_loss": train_results.get("pde_loss", 0.0),
+        "train_phase_field_loss": train_results.get("phase_field_loss", 0.0),
+        "train_dice_score": train_results.get("dice_score", 0.0),
+        "train_iou_score": train_results.get("iou_score", 0.0),
+        "train_boundary_f1_score": train_results.get("boundary_f1_score", 0.0),
+        "val_loss": val_results["loss"],
+        "val_dice_score": val_results["dice_score"],
+        "val_dice_loss": val_results.get("dice_loss", 0.0),
+        "val_bce_loss": val_results.get("bce_loss", 0.0),
+        "val_pde_loss": val_results.get("pde_loss", 0.0),
+        "val_phase_field_loss": val_results.get("phase_field_loss", 0.0),
+        "val_iou_score": val_results.get("iou_score", 0.0),
+        "val_boundary_f1_score": val_results.get("boundary_f1_score", 0.0),
+    }
+
+
 def train_stage(
     state: TrainState,
     train_epoch_fn,
@@ -229,22 +301,51 @@ def train_stage(
     batch_size: int,
     num_epochs: int,
     stage_name: str,
-    shuffle_generator: torch.Generator,
+    shuffle_seed: int,
     early_stopping: Optional[EarlyStopping] = None,
     verbose: bool = True,
     csv_path=None,
+    epoch_callback=None,
+    checkpoint_dir=None,
+    checkpoint_every: int = 0,
+    checkpoint_keep: Optional[int] = 2,
     timing_out: Optional[dict] = None,
+    save_best_path=None,
+    initial_metrics: Optional[list[dict]] = None,
 ) -> tuple[TrainState, dict, int, list[dict]]:
     """Host-side stage loop.  Returns
     ``(state, best_metrics, best_epoch, all_epoch_metrics)``; the state is
     the LAST epoch's.
 
-    Each epoch's shuffle is drawn from ``shuffle_generator``.
+    Epoch ``e`` (from 0) shuffles with a CPU generator seeded by
+    ``fold_seed(shuffle_seed, e)``.
+
+    ``checkpoint_dir``/``checkpoint_every``: save the full train state
+    (:func:`.checkpoint.save_train_state`) every N epochs and at the last
+    one; ``checkpoint_keep`` bounds retention to the newest N (``None``
+    keeps all; a state is ~250 MB at base_channels 64).
+
+    ``initial_metrics``: rows of epochs an interrupted run completed, with
+    ``state`` restored to match.  They are replayed through the same
+    best-epoch tracking and early stopping, then training continues at
+    epoch ``len(initial_metrics)``.  A resumed stage is bit-identical to
+    an uninterrupted one.
+
+    ``save_best_path``: when set, the parameters of every new best
+    validation-Dice epoch are saved there (``.pth``); the returned state
+    stays the last epoch's.  ``epoch_callback(epoch, row)`` runs after
+    each epoch's row and checkpoint are written.
+
     ``timing_out``, when given, receives ``epoch_seconds`` and
     ``steady_state_images_per_sec`` (first epoch excluded: it includes
     cuDNN's algorithm search and the kernels' first build).
+
+    Crash hook for tests of resume: with ``PIIS_FAULT_AFTER="<stage_name>:<epoch>"``
+    in the environment, ``RuntimeError`` is raised right after that epoch
+    of that stage, once its CSV row and any checkpoint are written.
     """
-    from ..data.pipeline import epoch_batch_indices
+    from ..data.pipeline import epoch_batch_indices, fold_seed
+    from .checkpoint import save_params, save_train_state
     from .csvlog import save_metrics_to_csv
 
     best_val_dice = 0.0
@@ -254,12 +355,36 @@ def train_stage(
     epoch_seconds: list[float] = []
     device = train_data.device
 
+    if initial_metrics:
+        all_metrics = [dict(r) for r in initial_metrics]
+        for row in all_metrics:
+            vd, ep = float(row["val_dice_score"]), int(row["epoch"])
+            if vd > best_val_dice:
+                best_val_dice = vd
+                best_epoch = ep
+                best_metrics = _nested_metrics_from_row(row)
+            if early_stopping is not None and early_stopping(vd, ep):
+                # the interrupted run had already stopped
+                if verbose:
+                    print(f"\n[resume] {stage_name}: early stopping already "
+                          f"triggered at epoch {ep} in the previous run")
+                if csv_path is not None:
+                    save_metrics_to_csv(all_metrics, csv_path)
+                if timing_out is not None:
+                    timing_out["epoch_seconds"] = []
+                    timing_out["steady_state_images_per_sec"] = 0.0
+                return state, best_metrics, best_epoch, all_metrics
+        if verbose:
+            print(f"[resume] {stage_name}: {len(all_metrics)} completed epoch(s) "
+                  f"replayed, continuing at epoch {len(all_metrics) + 1}/{num_epochs}")
+
     val_idx, val_valid = epoch_batch_indices(val_data.n, batch_size, shuffle=False, device=device)
 
-    for epoch in range(num_epochs):
+    for epoch in range(len(all_metrics), num_epochs):
         t_epoch = time.perf_counter()
+        shuffle = torch.Generator().manual_seed(fold_seed(shuffle_seed, epoch))
         idx, valid = epoch_batch_indices(
-            train_data.n, batch_size, shuffle=True, generator=shuffle_generator, device=device
+            train_data.n, batch_size, shuffle=True, generator=shuffle, device=device
         )
         state, train_results = train_epoch_fn(
             state, train_data.images, train_data.masks, idx, valid
@@ -273,29 +398,26 @@ def train_stage(
             best_val_dice = val_results["dice_score"]
             best_epoch = epoch + 1
             best_metrics = {"train": train_results, "val": val_results}
+            if save_best_path is not None:
+                save_params(state.model, save_best_path)
 
-        epoch_metrics = {
-            "epoch": epoch + 1,
-            "train_loss": train_results["loss"],
-            "train_dice_loss": train_results.get("dice_loss", 0.0),
-            "train_bce_loss": train_results.get("bce_loss", 0.0),
-            "train_pde_loss": train_results.get("pde_loss", 0.0),
-            "train_phase_field_loss": train_results.get("phase_field_loss", 0.0),
-            "train_dice_score": train_results.get("dice_score", 0.0),
-            "train_iou_score": train_results.get("iou_score", 0.0),
-            "train_boundary_f1_score": train_results.get("boundary_f1_score", 0.0),
-            "val_loss": val_results["loss"],
-            "val_dice_score": val_results["dice_score"],
-            "val_dice_loss": val_results.get("dice_loss", 0.0),
-            "val_bce_loss": val_results.get("bce_loss", 0.0),
-            "val_pde_loss": val_results.get("pde_loss", 0.0),
-            "val_phase_field_loss": val_results.get("phase_field_loss", 0.0),
-            "val_iou_score": val_results.get("iou_score", 0.0),
-            "val_boundary_f1_score": val_results.get("boundary_f1_score", 0.0),
-        }
+        epoch_metrics = _epoch_row(epoch + 1, train_results, val_results)
         all_metrics.append(epoch_metrics)
         if csv_path is not None:
             save_metrics_to_csv(all_metrics, csv_path)
+        if checkpoint_dir is not None and checkpoint_every > 0:
+            if (epoch + 1) % checkpoint_every == 0 or epoch + 1 == num_epochs:
+                save_train_state(state, checkpoint_dir, keep=checkpoint_keep)
+        if epoch_callback is not None:
+            epoch_callback(epoch + 1, epoch_metrics)
+
+        fault = os.environ.get("PIIS_FAULT_AFTER")
+        if fault is not None:
+            f_stage, _, f_epoch = fault.rpartition(":")
+            if f_stage == stage_name and int(f_epoch) == epoch + 1:
+                raise RuntimeError(
+                    f"PIIS_FAULT_AFTER: injected crash after {stage_name} epoch {epoch + 1}"
+                )
 
         if verbose:
             print(f"\n{stage_name} - Epoch {epoch + 1}/{num_epochs}")

@@ -11,8 +11,8 @@ Counterpart of ``physics_informed_image_segmentation_tpu/train/loop.py``:
 * Saves ``unet_baseline.pth`` / ``unet_pde_regularized.pth`` (reference
   ``state_dict`` keys), per-epoch 17-column CSVs, the test-set evaluation
   (CSV + JSON) and, optionally, training plots.
-
-Train-state checkpoints with resume are not part of this port yet.
+* Optionally writes full train-state checkpoints and resumes an
+  interrupted run from them.
 """
 
 from __future__ import annotations
@@ -25,10 +25,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data import CocoSegmentationSource, DeviceDataset, subset_fraction_indices
+from ..data import CocoSegmentationSource, DeviceDataset, fold_seed, subset_fraction_indices
+from ..data.pipeline import num_batches
 from ..models import UNet, count_parameters
 from ..utils.device import resolve_device, set_precision
-from .checkpoint import load_params, save_params
+from .checkpoint import latest_checkpoint_step, load_params, restore_train_state, save_params
 from .csvlog import save_test_metrics
 from .engine import (
     EarlyStopping,
@@ -48,11 +49,95 @@ def load_device_dataset(image_dir, annotation_file, device, image_size=(128, 128
     return DeviceDataset.from_numpy(src.images, src.masks, device)
 
 
-def _generator(seed: int, stream: int) -> torch.Generator:
-    """A CPU generator for one named random stream of a run."""
-    g = torch.Generator()
-    g.manual_seed(int(np.random.SeedSequence([seed, stream]).generate_state(1)[0]))
-    return g
+def _read_metric_rows(csv_path: Path) -> list[dict]:
+    """Load per-epoch rows from a 17-column stage CSV (resume replay).
+
+    The stage CSV is rewritten every epoch, so a crash mid-write can leave
+    a truncated final line; such a row (missing fields or unparseable
+    numbers) and anything after it are dropped.
+    """
+    import csv
+
+    rows: list[dict] = []
+    with open(csv_path, newline="") as f:
+        for r in csv.DictReader(f):
+            try:
+                row = {k: (int(v) if k == "epoch" else float(v)) for k, v in r.items()}
+            except (TypeError, ValueError):
+                break  # truncated trailing row from an interrupted rewrite
+            rows.append(row)
+    return rows
+
+
+def _rows_cover_stage(rows: list[dict], num_epochs: int, patience: int) -> bool:
+    """Whether a stage CSV proves its stage ran to completion: all
+    ``num_epochs`` rows are present, or early stopping (with the live
+    loop's parameters) fires within them.  Guards against a stale final
+    artifact of an older run beside a newer, partial CSV."""
+    if len(rows) >= num_epochs:
+        return True
+    probe = EarlyStopping(patience, 1e-4, "max")
+    return any(probe(float(r["val_dice_score"]), int(r["epoch"])) for r in rows)
+
+
+def _stage_resume(
+    state,
+    *,
+    output_dir: Path,
+    csv_glob: str,
+    checkpoint_dir: Optional[Path],
+    final_artifact: Optional[Path],
+    steps_per_epoch: int,
+    num_epochs: int,
+    patience: int,
+    verbose: bool,
+    min_mtime: Optional[float] = None,
+):
+    """Resume plan for one stage: ``(state, initial_metrics, csv_path)``.
+
+    In order: (1) the stage's final artifact exists and the CSV shows the
+    stage complete: load the artifact into the model and replay every row
+    (the stage then runs no epoch); (2) a train-state checkpoint exists:
+    restore it and replay the rows up to its epoch (later epochs re-run
+    and reproduce); (3) nothing to resume: ``(state, None, None)``.
+
+    A final artifact beside a partial CSV is a stale leftover of an older
+    run and is ignored.  The newest ``csv_glob`` file under ``output_dir``
+    is the interrupted run's log, and resume continues it in place; a log
+    older than ``min_mtime`` belongs to an earlier run and is ignored.
+    """
+    csvs = sorted(output_dir.glob(csv_glob), key=lambda p: p.stat().st_mtime)
+    if not csvs:
+        return state, None, None
+    prev_csv = csvs[-1]
+    if min_mtime is not None and prev_csv.stat().st_mtime < min_mtime:
+        # Stage II starts after Stage I ends, so a Stage II log older than
+        # the Stage I log being continued belongs to an earlier run.
+        if verbose:
+            print(f"[resume] ignoring {prev_csv.name}: older than this "
+                  "run's previous stage — stale leftover from an earlier run")
+        return state, None, None
+    rows = _read_metric_rows(prev_csv)
+
+    if final_artifact is not None and final_artifact.exists() and rows:
+        if _rows_cover_stage(rows, num_epochs, patience):
+            load_params(final_artifact, state.model)
+            if verbose:
+                print(f"[resume] stage already complete: {final_artifact.name} "
+                      f"+ {prev_csv.name} ({len(rows)} epochs)")
+            return state, rows, prev_csv
+        if verbose:
+            print(f"[resume] ignoring stale {final_artifact.name}: {prev_csv.name} covers "
+                  f"only {len(rows)}/{num_epochs} epochs with no early stop")
+
+    if checkpoint_dir is not None and latest_checkpoint_step(checkpoint_dir) is not None:
+        state = restore_train_state(state, checkpoint_dir)
+        done = state.step // steps_per_epoch
+        if verbose:
+            print(f"[resume] restored {checkpoint_dir.name} checkpoint at step "
+                  f"{state.step} (= {done} epochs), log {prev_csv.name}")
+        return state, rows[:done], prev_csv
+    return state, None, None
 
 
 def train(
@@ -80,6 +165,9 @@ def train(
     physics_backend: str = "auto",
     make_plots: bool = True,
     verbose: bool = True,
+    checkpoint_every: int = 0,
+    checkpoint_keep: Optional[int] = 2,
+    resume: bool = False,
     base_channels: int = 64,
     param_init: str = "lecun",
     device=None,
@@ -92,6 +180,21 @@ def train(
     the reference directory layout under ``data_root`` is read.
     ``precision="f32"`` turns TF32 off process-wide (see
     :func:`..utils.device.set_precision`).
+
+    ``checkpoint_every`` > 0 writes full train-state checkpoints every N
+    epochs (and at each stage's last) under
+    ``{models_dir}/checkpoints/{stage1,stage2,single_stage}``;
+    ``checkpoint_keep`` bounds retention to the newest N per stage
+    (``None`` keeps all; a state is ~250 MB at base_channels 64).
+
+    ``resume=True`` continues an interrupted run in the same
+    ``output_dir``/``models_dir`` with the same arguments: a stage whose
+    final ``.pth`` and CSV show it complete is skipped, a partial stage
+    restarts from its latest checkpoint, completed epochs are replayed
+    through the same best-epoch tracking and early stopping, and the
+    interrupted run's CSV is continued in place.  Shuffles are seeded per
+    epoch and the dropout generator's state is checkpointed, so a resumed
+    run is bit-identical to an uninterrupted one on the same device.
     """
     device = resolve_device(device)
     precision = set_precision(precision)
@@ -153,7 +256,7 @@ def train(
     # ----------------------------------------------------------------- model
     model = UNet(
         in_channels=1, out_channels=1, base_channels=base_channels,
-        param_init=param_init, generator=_generator(seed, 0),
+        param_init=param_init, generator=torch.Generator().manual_seed(fold_seed(seed, 0)),
     ).to(device)
     if verbose:
         print(f"\nCreating UNet model... ({count_parameters(model):,} params)")
@@ -169,8 +272,26 @@ def train(
     )
     stage1_loss_cfg = LossConfig(backend=physics_backend)
 
-    def run_stage(cfg, lr, num_epochs, name, stream, csv_path):
+    steps_per_epoch = num_batches(train_data.n, batch_size)
+    resumed_log_mtime: dict = {}  # a resumed stage's log, as the interrupted run left it
+
+    def run_stage(cfg, lr, num_epochs, name, stream, csv_path, tag, final_artifact,
+                  min_mtime=None):
+        """One stage, resumed when asked; returns its results, the CSV it
+        wrote and the number of epochs it trained."""
         state = create_train_state(model, lr, dropout_seed=seed + stream)
+        ckpt_dir = models_dir / "checkpoints" / tag if checkpoint_every > 0 else None
+        initial = None
+        if resume:
+            state, initial, prev_csv = _stage_resume(
+                state, output_dir=output_dir, csv_glob=f"metrics_{tag}_*.csv",
+                checkpoint_dir=ckpt_dir, final_artifact=final_artifact,
+                steps_per_epoch=steps_per_epoch, num_epochs=num_epochs,
+                patience=early_stopping_patience, verbose=verbose, min_mtime=min_mtime,
+            )
+            if prev_csv is not None:
+                csv_path = prev_csv
+                resumed_log_mtime[tag] = prev_csv.stat().st_mtime
         timing: dict = {}
         state, best, best_epoch, epochs = train_stage(
             state,
@@ -180,14 +301,18 @@ def train(
             val_data,
             num_epochs=num_epochs,
             stage_name=name,
-            shuffle_generator=_generator(seed, stream),
+            shuffle_seed=fold_seed(seed, stream),
             early_stopping=EarlyStopping(early_stopping_patience, 1e-4, "max"),
             csv_path=csv_path,
+            checkpoint_dir=ckpt_dir,
+            checkpoint_every=checkpoint_every,
+            checkpoint_keep=checkpoint_keep,
+            initial_metrics=initial,
             timing_out=timing,
             batch_size=batch_size,
             verbose=verbose,
         )
-        return best, best_epoch, epochs, timing
+        return best, best_epoch, epochs, timing, csv_path, len(epochs) - len(initial or [])
 
     n_images_trained = 0
     stage_timings: list[dict] = []
@@ -199,10 +324,11 @@ def train(
             print("STAGE I: BASELINE TRAINING (Unconstrained)")
             print("=" * 70)
             print("Objective: L = L_Dice + L_BCE")
-        best1, best1_epoch, s1_metrics, t1 = run_stage(
-            stage1_loss_cfg, learning_rate, stage1_epochs, "Stage I", 1, csv_path_stage1
+        best1, best1_epoch, s1_metrics, t1, csv_path_stage1, n_new = run_stage(
+            stage1_loss_cfg, learning_rate, stage1_epochs, "Stage I", 1, csv_path_stage1,
+            "stage1", models_dir / "unet_baseline.pth",
         )
-        n_images_trained += len(s1_metrics) * train_data.n
+        n_images_trained += n_new * train_data.n
         stage_timings.append(t1)
         if verbose and best1:
             print(f"\nStage I complete. Best validation Dice: "
@@ -231,10 +357,16 @@ def train(
             print(f"  Learning rate for Stage II: {stage2_lr:.2e} "
                   f"(reduced from {learning_rate:.2e})")
         # fresh AdamW over the Stage I weights
-        best2, best2_epoch, s2_metrics, t2 = run_stage(
-            stage2_loss_cfg, stage2_lr, stage2_epochs, "Stage II", 2, csv_path_stage2
+        best2, best2_epoch, s2_metrics, t2, csv_path_stage2, n_new = run_stage(
+            stage2_loss_cfg, stage2_lr, stage2_epochs, "Stage II", 2, csv_path_stage2,
+            "stage2", models_dir / "unet_pde_regularized.pth",
+            # the Stage I log's time before this run touched it: replaying an
+            # early stop rewrites that log
+            min_mtime=resumed_log_mtime.get(
+                "stage1",
+                csv_path_stage1.stat().st_mtime if csv_path_stage1.exists() else None),
         )
-        n_images_trained += len(s2_metrics) * train_data.n
+        n_images_trained += n_new * train_data.n
         stage_timings.append(t2)
         if verbose and best2:
             print(f"\nStage II complete. Best validation Dice: "
@@ -262,10 +394,11 @@ def train(
             print("SINGLE-STAGE TRAINING (PDE from start)")
             print("=" * 70)
         csv_path_single = output_dir / f"metrics_single_stage_{timestamp}{fraction_str}.csv"
-        best, best_epoch, s_metrics, t_single = run_stage(
-            stage2_loss_cfg, learning_rate, stage1_epochs, "Training", 1, csv_path_single
+        best, best_epoch, s_metrics, t_single, csv_path_single, n_new = run_stage(
+            stage2_loss_cfg, learning_rate, stage1_epochs, "Training", 1, csv_path_single,
+            "single_stage", models_dir / "unet_pde_regularized.pth",
         )
-        n_images_trained += len(s_metrics) * train_data.n
+        n_images_trained += n_new * train_data.n
         stage_timings.append(t_single)
         model_path_stage2 = save_params(model, models_dir / "unet_pde_regularized.pth")
         if verbose:

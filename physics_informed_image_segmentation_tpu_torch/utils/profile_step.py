@@ -1,13 +1,15 @@
 """Where a Stage II training step spends its time on the GPU.
 
-    python -m physics_informed_image_segmentation_tpu_torch.utils.profile_step [--steps 8]
+    python -m physics_informed_image_segmentation_tpu_torch.utils.profile_step \
+        [--steps 8] [--optimizer adamw|pallas_adamw|...]
 
 Trains the full-width U-Net (base_channels 64, 128x128, batch 8, bf16) on
-synthetic blobs with the Stage II objective: one warm-up epoch, then one
-epoch under ``torch.profiler``.  Prints the host wall time per step, the
-device's busy time and idle share over that window, the device time of
-the fused physics kernels, and the kernels that take the most device
-time.  Needs a CUDA GPU.
+synthetic blobs with the Stage II objective and the named optimizer (a
+``create_train_state`` name): one warm-up epoch, then one epoch
+unprofiled and one under ``torch.profiler``.  Prints the host wall time
+per step, the device's busy time and idle share over that window, the
+device time of the fused physics kernels, of the optimizer's kernels,
+and the kernels that take the most device time.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=8, help="train steps in the window")
     parser.add_argument("--top", type=int, default=12, help="kernels to list")
+    parser.add_argument("--optimizer", default="adamw",
+                        help="optimizer name for create_train_state (default: adamw)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA GPU")
@@ -62,7 +66,7 @@ def main(argv=None) -> None:
     images, masks = make_blobs(n, 128, 128, seed=1)
     data = DeviceDataset.from_numpy(images, masks, "cuda")
     model = UNet(base_channels=64, generator=torch.Generator().manual_seed(0)).cuda()
-    state = create_train_state(model, 1e-5)
+    state = create_train_state(model, 1e-5, optimizer=args.optimizer)
     cfg = LossConfig(pde_weight=1e-4, phase_field_weight=1e-4, diffusion_coeff=5.0,
                      reaction_threshold=0.5, epsilon=0.05)
     epoch_fn = make_train_epoch_fn(cfg, precision="bf16")
@@ -86,7 +90,8 @@ def main(argv=None) -> None:
         wall = time.perf_counter() - t0
 
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"Stage II train, base_channels 64, 128x128, batch {batch}, bf16, {args.steps} steps: "
+    print(f"Stage II train, {args.optimizer}, base_channels 64, 128x128, batch {batch}, bf16, "
+          f"{args.steps} steps: "
           f"{wall_plain / args.steps * 1e3:.3f} ms/step wall ({n / wall_plain:.1f} img/s) "
           f"unprofiled, {wall / args.steps * 1e3:.3f} ms/step under the profiler")
     busy, span = _busy_us(prof.events())
@@ -105,6 +110,10 @@ def main(argv=None) -> None:
     for e in k1:
         print(f"K1 {e.key[:60]}: {_device_time(e) / e.count:.2f} µs/launch device, "
               f"{e.count} launches")
+    opt = [e for e in kernels if "adamw_kernel" in e.key or "multi_tensor_apply" in e.key]
+    print(f"optimizer ({args.optimizer}) device time: "
+          f"{sum(_device_time(e) for e in opt) / args.steps:.1f} µs/step in "
+          f"{sum(e.count for e in opt) / args.steps:g} launches/step")
     launches = sum(e.count for e in kernels) / args.steps
     print(f"device time by kernel ({len(kernels)} kernels, {launches:.0f} launches/step, "
           f"{total / args.steps / 1e3:.3f} ms/step):")

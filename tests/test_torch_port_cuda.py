@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the fused physics-sums CUDA kernel against its
-plain version, and the Stage II objective and train step through it.
+"""PyTorch port on the card: the fused physics-sums CUDA kernel (K1) and the
+fused AdamW kernel (K2) against their plain versions, and the Stage II
+objective and train step through them.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these tests skip on a
 machine without a GPU.  Run them on the card with
@@ -8,17 +9,21 @@ machine without a GPU.  Run them on the card with
 
 Tolerances: the kernel and the plain version sum in float32 in different
 orders (no atomics), so sums agree to rtol 1e-5 and gradients to
-atol 1e-6·max|g| + rtol 1e-5.
+atol 1e-6·max|g| + rtol 1e-5.  K2 rounds every operation as its plain
+version does, so the two must be bit-equal.
 """
 
 import pytest
 import torch
 
 from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
+from physics_informed_image_segmentation_tpu_torch.train import adamw_kernel as K2
+from physics_informed_image_segmentation_tpu_torch.train import engine
 from physics_informed_image_segmentation_tpu_torch.train.objective import (
     LossConfig,
     make_loss_and_components,
 )
+from physics_informed_image_segmentation_tpu_torch.train.optim import AdamW
 
 pytestmark = pytest.mark.cuda
 
@@ -93,3 +98,83 @@ def test_wrapper_rejects_mixed_devices(cuda):
     u, t, _ = _case((2, 8, 8), cuda)
     with pytest.raises(ValueError):
         K.fused_physics_sums(u, t, torch.ones((2, 1)), D, A, EPS)
+
+
+def _adamw_pair(shapes, device, steps=3, seed=0, offset=0):
+    """K2 and the plain AdamW over the same params and gradients of varied
+    scale; with ``offset`` every tensor starts that many floats into its
+    buffer (16-byte misalignment for offset 1)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def on_card(x):
+        buf = torch.empty(x.numel() + offset, device=device)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    params = [torch.randn(s, generator=g) for s in shapes]
+    grads = [[torch.randn(s, generator=g) * 10.0 ** -float(k) for s in shapes]
+             for k in range(steps)]
+    opts = []
+    for cls in (K2.FusedAdamW, AdamW):
+        opt = cls([on_card(p) for p in params], 1e-3, 1e-5)
+        opt.m = [on_card(x) for x in opt.m]
+        opt.v = [on_card(x) for x in opt.v]
+        for gs in grads:
+            opt.step([on_card(x) for x in gs])
+        opts.append(opt)
+    torch.cuda.synchronize()
+    return opts
+
+
+@pytest.mark.parametrize("shapes,offset,launches", [
+    ([(1,), (3,), (64,), (1023,), (4097,), (65537,), (3, 3, 7, 5)], 0, 1),
+    ([(1,), (3,), (64,), (1023,), (4097,), (65537,), (3, 3, 7, 5)], 1, 1),
+    ([(0,), (5,)], 0, 1),
+    ([(i + 1,) for i in range(65)], 0, 2),
+    ([(3, 3, 512, 512), (512,)], 0, 1),
+])
+def test_adamw_kernel_bit_equal_to_plain_version(cuda, shapes, offset, launches):
+    K2.reset_launch_counts()
+    kernel, plain = _adamw_pair(shapes, cuda, offset=offset)
+    assert K2.launch_counts["adamw"] == 3 * launches
+    for a, b in zip(kernel.params + kernel.m + kernel.v, plain.params + plain.m + plain.v):
+        assert torch.equal(a, b)
+
+
+def test_adamw_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    p, m, v = (torch.zeros(4, 4, device=cuda) for _ in range(3))
+    with pytest.raises(ValueError, match="contiguous"):
+        K2.fused_adamw_([p], [torch.zeros(4, 4, device=cuda).t()], [m], [v], 0.1, 1e-3, 1e-3, 0.0)
+    with pytest.raises(TypeError, match="float32"):
+        K2.fused_adamw_([p], [torch.zeros(4, 4, device=cuda, dtype=torch.float64)], [m], [v],
+                        0.1, 1e-3, 1e-3, 0.0)
+    with pytest.raises(ValueError, match="is on"):
+        K2.fused_adamw_([p], [torch.zeros(4, 4)], [m], [v], 0.1, 1e-3, 1e-3, 0.0)
+
+
+def test_pallas_adamw_train_step_goes_through_the_kernel(cuda):
+    """One Stage II step with "pallas_adamw" launches K2 once and matches
+    "adamw" bit for bit (f32, deterministic cuDNN, same dropout seed)."""
+    from physics_informed_image_segmentation_tpu_torch.models import UNet
+
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False
+    try:
+        x, y, _ = _case((4, 64, 64, 1), cuda, seed=4)
+        y = (y > 0.5).float()
+        step = engine.make_train_step_fn(LossConfig(pde_weight=1e-4, phase_field_weight=1e-4),
+                                         precision="f32")
+        params = {}
+        for name in ("adamw", "pallas_adamw"):
+            model = UNet(base_channels=8, generator=torch.Generator().manual_seed(0)).to(cuda)
+            state = engine.create_train_state(model, 1e-3, optimizer=name, dropout_seed=1)
+            K2.reset_launch_counts()
+            step(state, x, y, torch.ones(4, device=cuda))
+            torch.cuda.synchronize()
+            assert K2.launch_counts["adamw"] == (name == "pallas_adamw")
+            params[name] = [p.detach() for p in model.parameters()]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = old
+    for a, b in zip(params["adamw"], params["pallas_adamw"]):
+        assert torch.equal(a, b)

@@ -18,10 +18,12 @@ import torch
 from physics_informed_image_segmentation_tpu.data import DeviceDataset as JaxDataset
 from physics_informed_image_segmentation_tpu.models import UNet as JaxUNet
 from physics_informed_image_segmentation_tpu.train import engine as jax_engine
+from physics_informed_image_segmentation_tpu.train import loop as jax_loop
 from physics_informed_image_segmentation_tpu.train.objective import LossConfig as JaxLossConfig
 from physics_informed_image_segmentation_tpu_torch.data import DeviceDataset, make_blobs
 from physics_informed_image_segmentation_tpu_torch.models import UNet
 from physics_informed_image_segmentation_tpu_torch.train import engine
+from physics_informed_image_segmentation_tpu_torch.train import loop
 from physics_informed_image_segmentation_tpu_torch.train.objective import (
     LossConfig,
     make_loss_and_components,
@@ -51,6 +53,13 @@ def _assert_params_close(model, jax_params, rtol):
 
 
 def test_adamw_follows_optax():
+    """rtol 1e-6, not bit-equality: optax run op by op here computes
+    b2**count by another route than the float32 power of optax under jit
+    (and of the port), e.g. 0.00299692 against 0.0029969811 at count 3;
+    and under jit XLA's CPU compiler contracts the moment updates into
+    fused multiply-adds, which the port rounds in two steps.  The port
+    divides by the bias corrections truly, as optax does, on the CPU and
+    on the card (``optim._true_div``)."""
     rng = np.random.default_rng(0)
     shapes = [(3, 4), (5,), (2, 2, 3)]
     params = [rng.normal(size=s).astype(np.float32) for s in shapes]
@@ -115,7 +124,7 @@ def _port_stage(state, cfg, train, val, epochs, batch):
     return engine.train_stage(
         state, engine.make_train_epoch_fn(cfg), engine.make_eval_epoch_fn(cfg), train, val,
         batch_size=batch, num_epochs=epochs, stage_name="s",
-        shuffle_generator=torch.Generator().manual_seed(0),
+        shuffle_seed=0,
         early_stopping=engine.EarlyStopping(1, 1e-4, "max"), verbose=False)
 
 
@@ -165,3 +174,45 @@ def test_early_stopping_matches_jax():
     ours, ref = engine.EarlyStopping(2), jax_engine.EarlyStopping(2)
     assert [ours(s, i) for i, s in enumerate(scores)] == [ref(s, i) for i, s in enumerate(scores)]
     assert (ours.best_epoch, ours.best_score) == (ref.best_epoch, ref.best_score)
+
+
+def test_train_with_checkpoints_matches_jax_train(tmp_path, monkeypatch):
+    """Both packages' ``train()`` with ``checkpoint_every=1`` from the same
+    weights (the JAX train()'s own init, transplanted), f32, dropout 0,
+    batch_size > n: per-epoch rows and final params within the slice
+    tolerance (rtol 2e-4), and the port's checkpoints written."""
+    lr, seed, n_train = 1e-3, 4, 4
+    # the params JAX train() draws: root key -> init key -> params key
+    init_key, _ = jax.random.split(jax.random.key(seed))
+    params_key, _ = jax.random.split(init_key)
+    jmodel = JaxUNet(base_channels=C, dropout=0.0, dtype=jnp.float32)
+    params = jmodel.init(params_key, jnp.zeros((1, HW, HW, 1), jnp.float32))
+    weights = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params), dropout=0.0)
+
+    def port_unet(generator=None, **kw):
+        model = UNet(dropout=0.0, **kw)
+        model.load_state_dict(weights)
+        return model
+
+    monkeypatch.setattr(jax_loop, "UNet", lambda **kw: JaxUNet(**{**kw, "dropout": 0.0}))
+    monkeypatch.setattr(loop, "UNet", port_unet)
+    images, masks = make_blobs(n_train + 2, HW, HW, seed=6)
+    common = dict(stage1_epochs=3, stage2_epochs=2, batch_size=6, learning_rate=lr, seed=seed,
+                  base_channels=C, precision="f32", make_plots=False, verbose=False,
+                  checkpoint_every=1, **PHYSICS)
+    jres = jax_loop.train(
+        train_data=JaxDataset.from_numpy(images[:n_train], masks[:n_train]),
+        val_data=JaxDataset.from_numpy(images[n_train:], masks[n_train:]),
+        physics_backend="pallas", output_dir=tmp_path / "jax", models_dir=tmp_path / "jax",
+        **common)
+    res = loop.train(
+        train_data=DeviceDataset.from_numpy(images[:n_train], masks[:n_train], "cpu"),
+        val_data=DeviceDataset.from_numpy(images[n_train:], masks[n_train:], "cpu"),
+        device="cpu", output_dir=tmp_path / "port", models_dir=tmp_path / "port", **common)
+
+    _assert_rows_close(res["stage1"]["epochs"], jres["stage1"]["epochs"])
+    _assert_rows_close(res["stage2"]["epochs"], jres["stage2"]["epochs"])
+    _assert_params_close(res["model"], jres["final_state"].params, rtol=2e-4)
+    for stage, steps in (("stage1", ["step_2", "step_3"]), ("stage2", ["step_1", "step_2"])):
+        names = sorted(p.name for p in (tmp_path / "port" / "checkpoints" / stage).iterdir())
+        assert names == steps, (stage, names)
