@@ -28,10 +28,21 @@ final result line):
    2 steps and restored into a fresh state continues bit-equal to 4
    uninterrupted steps; ``train()`` with ``checkpoint_every=1``, a crash
    injected after Stage II epoch 1 and ``resume=True`` completes;
-8. time the kernels, their plain versions, the library's fused AdamW and
+8. K3 (the halo-padded physics sums) against its plain version at the
+   megapixel block (1,1026,1026), the training block (8,130,130), odd
+   sizes, the smallest band, saturated u and without the reaction term;
+   and K3 on the four ghost-filled row bands of a (2,256,256) field
+   against K1 on the whole field, sums and folded gradients;
+9. the data×space path at world 1 (NCCL through a file store): the
+   megapixel train step (``parallel/megapixel.py``: 1024x1024, base 64,
+   bf16, 3 steps) with K3's launch counts and its peak memory; one f32
+   halo step at 128x128 against the unsharded K1 step; one
+   data-parallel epoch of ``make_sharded_epoch_fns`` through
+   ``train_stage`` with K1's launch counts;
+10. time the kernels, their plain versions, the library's fused AdamW and
    steady-state Stage II training with "adamw" and "pallas_adamw", with
    CUDA events;
-9. print one JSON line describing every kernel, then the result line.
+11. print one JSON line describing every kernel, then the result line.
 
 Needs one card, a CUDA toolkit (``nvcc``) and this repository around it.
 """
@@ -66,6 +77,11 @@ BWD_FLOPS_PER_PIXEL = 90
 # for the direction, mul + add + mul + add for the decay and step)
 ADAMW_BYTES_PER_PARAM = 28
 ADAMW_FLOPS_PER_PARAM = 15
+# K3 float operations per pixel, counted from the source: the forward's
+# stencils, reaction and energies per interior pixel; the backward's
+# fields per interior pixel plus its gather per padded pixel
+K3_FWD_FLOPS_PER_PIXEL = 28
+K3_BWD_FLOPS_PER_PIXEL = 45
 
 D, A, EPS = 5.0, 0.5, 0.05
 STAGE2 = dict(pde_weight=1e-4, phase_field_weight=1e-4, diffusion_coeff=D,
@@ -492,6 +508,231 @@ def check_resume_train() -> None:
         check(all(np.isfinite(v) for v in row.values()), f"non-finite row {row}")
 
 
+def k3_case(shape, seed, *, saturated=False):
+    g = torch.Generator().manual_seed(seed)
+    if saturated:
+        p = torch.randint(0, 3, shape, generator=g).float() / 2.0  # {0, 0.5, 1}
+    else:
+        p = 0.02 + 0.96 * torch.rand(shape, generator=g)
+    return p.cuda(), torch.randn((shape[0], 2), generator=g).cuda()
+
+
+def check_k3() -> dict:
+    """K3 against its plain version; returns the megapixel block's errors."""
+    from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
+
+    cases = [
+        ("megapixel block (1,1026,1026)", (1, 1026, 1026), {}, True),
+        ("training block (8,130,130)", (8, 130, 130), {}, True),
+        ("odd size (3,37,53)", (3, 37, 53), {}, True),
+        ("smallest band (2,4,35)", (2, 4, 35), {}, True),
+        ("saturated u (2,18,26)", (2, 18, 26), {"saturated": True}, True),
+        ("no reaction (8,130,130)", (8, 130, 130), {}, False),
+        ("no reaction, saturated (3,37,53)", (3, 37, 53), {"saturated": True}, False),
+    ]
+    errors = {}
+    for i, (label, shape, kw, use_reaction) in enumerate(cases):
+        p, cot = k3_case(shape, seed=40 + i, **kw)
+        out = {}
+        for name, fn in (("kernel", K3.PaddedPhysicsSums.apply),
+                         ("plain", K3.padded_physics_sums_reference)):
+            pp = p.clone().requires_grad_(True)
+            sums = fn(pp, D, A, EPS, use_reaction)
+            (dp,) = torch.autograd.grad(sums, pp, cot)
+            torch.cuda.synchronize()
+            out[name] = (sums.detach(), dp)
+        (sk, dk), (sp, dpl) = out["kernel"], out["plain"]
+        check(bool(torch.isfinite(sk).all() and torch.isfinite(dk).all()),
+              f"K3 {label}: kernel output not finite")
+        err_s, err_d = float((sk - sp).abs().max()), float((dk - dpl).abs().max())
+        print(f"K3 {label}: max|d sums| {err_s:.3e}, max|d dp| {err_d:.3e} "
+              f"(max|dp| {float(dpl.abs().max()):.3e})")
+        check(bool(torch.all((sk - sp).abs() <= SUM_RTOL * sp.abs())),
+              f"K3 {label}: forward sums differ beyond rtol {SUM_RTOL}")
+        check(grad_ok(dk, dpl), f"K3 {label}: dp differs beyond tolerance")
+        check(bool((dk[:, [0, 0, -1, -1], [0, -1, 0, -1]] == 0).all()),
+              f"K3 {label}: the ghost ring's corners must get zero gradient")
+        if i == 0:
+            errors = {"padded_physics_fwd": err_s, "padded_physics_bwd": err_d}
+    return errors
+
+
+def bands_with_ghosts(u, n_bands):
+    """Cut (B, H, W) into row bands with their ghost rows filled from the
+    neighbours (mirrored at the global edges) and mirrored columns."""
+    h = u.shape[1] // n_bands
+    blocks = []
+    for k in range(n_bands):
+        top = u[:, k * h - 1] if k > 0 else u[:, 1]
+        bot = u[:, (k + 1) * h] if k < n_bands - 1 else u[:, -2]
+        rows = torch.cat([top[:, None], u[:, k * h:(k + 1) * h], bot[:, None]], dim=1)
+        blocks.append(torch.cat([rows[..., 1:2], rows, rows[..., -2:-1]], dim=2).contiguous())
+    return blocks
+
+
+def fold_bands(grads, n_bands, shape):
+    """Transpose of :func:`bands_with_ghosts`: ghost rows go back to the
+    rows they came from, mirror ghosts onto rows and columns 1 and -2."""
+    du = torch.zeros(shape, device=grads[0].device)
+    h = shape[1] // n_bands
+    for k, g in enumerate(grads):
+        core = g[..., 1:-1].clone()
+        core[..., 1] += g[..., 0]
+        core[..., -2] += g[..., -1]
+        du[:, k * h:(k + 1) * h] += core[:, 1:-1]
+        du[:, k * h - 1 if k > 0 else 1] += core[:, 0]
+        du[:, (k + 1) * h if k < n_bands - 1 else -2] += core[:, -1]
+    return du
+
+
+def check_k3_against_k1() -> None:
+    """K3 on the 4 ghost-filled row bands of a (2,256,256) field against
+    K1 on the whole field: summed [Σr², Σpf] rtol 1e-5, and the folded
+    band gradients against K1's du for a cotangent on those two columns."""
+    from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K1
+
+    shape = (2, 256, 256)
+    g = torch.Generator().manual_seed(50)
+    u = (0.02 + 0.96 * torch.rand(shape, generator=g)).cuda()
+    cot = torch.randn((2, 2), generator=g).cuda()
+    for use_reaction in (True, False):
+        uu = u.clone().requires_grad_(True)
+        sums = K1.FusedPhysicsSums.apply(uu, torch.zeros_like(u), torch.ones((2, 1), device="cuda"),
+                                        D, A, EPS, use_reaction)
+        cot6 = torch.zeros((2, 6), device="cuda")
+        cot6[:, 4:] = cot
+        (du_k1,) = torch.autograd.grad(sums, uu, cot6)
+        blocks = [b.requires_grad_(True) for b in bands_with_ghosts(u, 4)]
+        total = torch.stack([K3.PaddedPhysicsSums.apply(b, D, A, EPS, use_reaction)
+                             for b in blocks]).sum(0)
+        du_k3 = fold_bands(torch.autograd.grad(total, blocks, cot), 4, shape)
+        torch.cuda.synchronize()
+        ref = sums[:, 4:].detach()
+        err_s, err_d = float((total.detach() - ref).abs().max()), float((du_k3 - du_k1).abs().max())
+        print(f"K3 on 4 bands vs K1 on the field (2,256,256), reaction {use_reaction}: "
+              f"max|d sums| {err_s:.3e} of {float(ref.abs().max()):.3e}, max|d du| {err_d:.3e} "
+              f"(max|du| {float(du_k1.abs().max()):.3e})")
+        check(bool(torch.all((total.detach() - ref).abs() <= SUM_RTOL * ref.abs())),
+              "K3 over bands and K1 disagree on the sums")
+        check(grad_ok(du_k3, du_k1), "K3's folded band gradients and K1's du disagree")
+
+
+def drive_halo_path() -> dict:
+    """The data×space path at world 1: the megapixel step (1024x1024,
+    base 64, bf16, 3 steps) through ``parallel/megapixel.py``; returns its
+    result and K3's launch counts, read around it."""
+    from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K1
+    from physics_informed_image_segmentation_tpu_torch.parallel import megapixel
+    from physics_informed_image_segmentation_tpu_torch.train import adamw_kernel as K2
+
+    for k in (K1, K2, K3):
+        k.reset_launch_counts()
+    res = megapixel.run(1024, 64)
+    torch.cuda.synchronize()
+    counts = {**K1.launch_counts, **K2.launch_counts, **K3.launch_counts}
+    print(f"megapixel halo step at world 1: 1024x1024, base 64, bf16, batch 1, 3 steps: losses "
+          f"{res['losses']}; first step {res['first_step_ms']:.1f} ms, then "
+          f"{res['ms_per_step']:.2f} ms/step; peak memory {res['peak_bytes'] / 2**30:.3f} GiB; "
+          f"launches {counts}")
+    check(counts["padded_physics_fwd"] == 3 and counts["padded_physics_bwd"] == 3,
+          f"expected 3 forward and 3 backward K3 launches, got {counts}")
+    check(all(np.isfinite(v) for v in res["losses"]), f"non-finite losses {res['losses']}")
+    check(res["peak_bytes"] > 0, "no peak memory measured")
+    return {"res": res, "counts": counts}
+
+
+def check_halo_step_against_unsharded() -> dict:
+    """One f32 halo step at world 1 (128x128, base 64, batch 8, dropout on,
+    deterministic cuDNN) against the unsharded K1 step from the same
+    weights and dropout seed: |dloss| <= 5e-5 |loss|, params atol 1e-5."""
+    from physics_informed_image_segmentation_tpu_torch.parallel import (
+        make_mesh, make_sharded_train_step, shard_train_state,
+    )
+    from physics_informed_image_segmentation_tpu_torch.train import (
+        LossConfig, create_train_state, make_train_step_fn,
+    )
+
+    cfg = LossConfig(**STAGE2)
+    mesh = make_mesh()
+    data = blob_data(8, seed=9)
+    with deterministic_f32():
+        runs = {}
+        for name in ("halo", "unsharded"):
+            model = unet64()
+            state = create_train_state(model, 1e-4, dropout_seed=5)
+            if name == "halo":
+                state = shard_train_state(state, mesh)
+                step = make_sharded_train_step(cfg, mesh, spatial=True, halo_physics=True,
+                                               precision="f32")
+                state, loss = step(state, data.images, data.masks)
+            else:
+                step = make_train_step_fn(cfg, compute_metrics=False, precision="f32")
+                state, out = step(state, data.images, data.masks, torch.ones(8, device="cuda"))
+                loss = out["loss"]
+            runs[name] = (float(loss), [p.detach().clone() for p in model.parameters()])
+    (lh, ph), (lu, pu) = runs["halo"], runs["unsharded"]
+    diff = max(float((a - b).abs().max()) for a, b in zip(ph, pu))
+    print(f"halo step vs unsharded K1 step, 128x128, base 64, f32: losses {lh!r} / {lu!r} "
+          f"(|dloss| {abs(lh - lu):.3e}), max|d params| {diff:.3e}")
+    check(abs(lh - lu) <= 5e-5 * abs(lu), "the halo step's loss differs beyond 5e-5 relative")
+    check(diff <= 1e-5, "the halo step's parameters differ beyond 1e-5")
+    return {"dloss": abs(lh - lu), "loss": lu, "dparams": diff}
+
+
+def drive_dp_epoch() -> dict:
+    """One data-parallel epoch of ``make_sharded_epoch_fns`` through
+    ``train_stage`` (128x128, base 64, batch 8, bf16, 4 steps + 1 val
+    batch); returns K1's launch counts."""
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K1
+    from physics_informed_image_segmentation_tpu_torch.parallel import (
+        make_mesh, make_sharded_epoch_fns, shard_train_state,
+    )
+    from physics_informed_image_segmentation_tpu_torch.train import (
+        LossConfig, create_train_state, train_stage,
+    )
+
+    mesh = make_mesh()
+    batch, steps = 8, 4
+    train_data, val_data = blob_data(batch * steps, seed=10), blob_data(batch, seed=11)
+    state = shard_train_state(create_train_state(unet64(), 1e-5), mesh)
+    K1.reset_launch_counts()
+    state, _, _, rows = train_stage(
+        state, *make_sharded_epoch_fns(LossConfig(**STAGE2), mesh, precision="bf16"),
+        train_data, val_data, batch_size=batch, num_epochs=1, stage_name="Stage II",
+        shuffle_seed=0, verbose=False,
+    )
+    torch.cuda.synchronize()
+    counts = dict(K1.launch_counts)
+    print(f"data-parallel epoch at world 1 (make_sharded_epoch_fns, train_stage, base 64, "
+          f"128x128, batch {batch}, bf16): K1 launches {counts}; train loss "
+          f"{rows[0]['train_loss']:.6f}, val dice {rows[0]['val_dice_score']:.4f}")
+    check(counts["physics_sums_fwd"] == steps + 1 and counts["physics_sums_bwd"] == steps,
+          f"K1 launches on the data-parallel path: {counts}")
+    check(all(np.isfinite(v) for v in rows[0].values()), f"non-finite metrics: {rows[0]}")
+    return counts
+
+
+def drive_parallel_paths() -> dict:
+    """Phases of the data×space path, in a world of one on NCCL."""
+    import torch.distributed as dist
+
+    from physics_informed_image_segmentation_tpu_torch.parallel import initialize_distributed
+
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        initialize_distributed(f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not NCCL")
+            out = {"halo": drive_halo_path()}
+            out["vs_unsharded"] = check_halo_step_against_unsharded()
+            out["dp_counts"] = drive_dp_epoch()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def time_cuda(fn, warmup=5, reps=30) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` calls, each bracketed
     by CUDA events, after ``warmup`` calls."""
@@ -550,6 +791,44 @@ def time_kernels() -> dict:
               f"by {b_bwd_by})")
     print("library_ms: no single PyTorch call computes K1's function, so there is no "
           "library yardstick (null)")
+    return out
+
+
+def k3_bound_ms(shape, bwd: bool) -> tuple[float, str]:
+    """Least time for K3's work: p read once (and dp written once in the
+    backward), or its float32 operations, whichever is larger."""
+    b, hp, wp = shape
+    padded, interior = b * hp * wp, b * (hp - 2) * (wp - 2)
+    if bwd:  # read p and cot, write dp
+        nbytes, flops = 2 * padded * 4 + b * 8, K3_BWD_FLOPS_PER_PIXEL * interior
+    else:  # read p, write sums
+        nbytes, flops = padded * 4 + b * 8, K3_FWD_FLOPS_PER_PIXEL * interior
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_k3() -> dict:
+    from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
+
+    out = {}
+    for shape in ((1, 1026, 1026), (8, 130, 130)):
+        p, cot = k3_case(shape, seed=60)
+        args = (D, A, EPS, True)
+        with torch.no_grad():
+            k_fwd = time_cuda(lambda: K3._launch_fwd(p, *args))
+            p_fwd = time_cuda(lambda: K3.padded_physics_sums_reference(p, *args))
+        k_bwd = time_cuda(lambda: K3._launch_bwd(p, cot, *args))
+        pp = p.clone().requires_grad_(True)
+        sums = K3.padded_physics_sums_reference(pp, *args)
+        p_bwd = time_cuda(lambda: torch.autograd.grad(sums, pp, cot, retain_graph=True))
+        b_fwd, b_fwd_by = k3_bound_ms(shape, bwd=False)
+        b_bwd, b_bwd_by = k3_bound_ms(shape, bwd=True)
+        out[shape] = dict(fwd=k_fwd, plain_fwd=p_fwd, bound_fwd=b_fwd, bound_fwd_by=b_fwd_by,
+                          bwd=k_bwd, plain_bwd=p_bwd, bound_bwd=b_bwd, bound_bwd_by=b_bwd_by)
+        print(f"K3 times at {shape}: fwd {k_fwd:.4f} ms (plain {p_fwd:.4f}, bound {b_fwd:.5f} "
+              f"by {b_fwd_by}); bwd {k_bwd:.4f} ms (plain {p_bwd:.4f}, bound {b_bwd:.5f} "
+              f"by {b_bwd_by})")
+    print("library_ms: no single PyTorch call computes K3's function (null)")
     return out
 
 
@@ -648,7 +927,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    built = build_all(["physics_sums", "adamw"], verbose=True)
+    built = build_all(["physics_sums", "adamw", "padded_physics"], verbose=True)
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
     errors = check_kernels()
@@ -663,7 +942,11 @@ def main() -> int:
     check_resume_engine()
     check_resume_train()
     torch.cuda.synchronize()
+    errors.update(check_k3())
+    check_k3_against_k1()
+    parallel = drive_parallel_paths()
     times = time_kernels()
+    k3_times = time_k3()
     k2_times = time_adamw()
     rates = {name: [] for name in ("adamw", "pallas_adamw")}
     for name in ("adamw", "pallas_adamw", "pallas_adamw", "adamw"):
@@ -692,6 +975,25 @@ def main() -> int:
          "bound_ms": k2_times["bound"], "bound_by": k2_times["bound_by"],
          "library_ms": k2_times["library"]},
     ]
+    mp = k3_times[(1, 1026, 1026)]
+    halo_counts = parallel["halo"]["counts"]
+    for direction in ("fwd", "bwd"):
+        kernels.append({
+            "name": f"padded_physics_{direction}", "route": "cuda",
+            "source": f"{PKG}/csrc/padded_physics.cu",
+            "replaces": "physics_informed_image_segmentation_tpu/ops/pallas_physics.py:"
+                        + ("390" if direction == "fwd" else "405"),
+            "launches": halo_counts[f"padded_physics_{direction}"],
+            "max_abs_err": errors[f"padded_physics_{direction}"],
+            "ms": mp[direction], "plain_ms": mp[f"plain_{direction}"],
+            "bound_ms": mp[f"bound_{direction}"], "bound_by": mp[f"bound_{direction}_by"],
+            "library_ms": None})
+    mres = parallel["halo"]["res"]
+    print(json.dumps({"megapixel_step": {
+        "image": mres["image"], "base_channels": 64, "precision": "bf16", "batch": 1,
+        "first_step_ms": mres["first_step_ms"], "ms_per_step": mres["ms_per_step"],
+        "peak_bytes": mres["peak_bytes"]}, "halo_vs_unsharded": parallel["vs_unsharded"],
+        "card": smi}))
     print(json.dumps({"stage2_train_img_per_s": rates, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

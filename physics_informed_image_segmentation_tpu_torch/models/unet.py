@@ -72,13 +72,23 @@ def _make_activation(name: str) -> nn.Module:
 
 
 def spatial_dropout(
-    x: torch.Tensor, p: float, generator: Optional[torch.Generator]
+    x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+    batch_rows: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Channel-wise dropout (``Dropout2d`` semantics) drawing its mask from
-    ``generator``: one keep/drop per (sample, channel), broadcast over H, W."""
-    keep = torch.empty((x.shape[0], x.shape[1], 1, 1), device=x.device, dtype=torch.float32)
+    ``generator``: one keep/drop per (sample, channel), broadcast over H, W.
+
+    ``batch_rows=(global_batch, offset)``: ``x`` holds samples ``offset``
+    onwards of a batch of ``global_batch`` sharded over ranks; the mask of
+    the whole batch is drawn (every rank's generator is in the same state)
+    and this rank's rows are taken, so a sharded run draws the masks of
+    the unsharded one.
+    """
+    b = x.shape[0]
+    total, offset = (b, 0) if batch_rows is None else batch_rows
+    keep = torch.empty((total, x.shape[1], 1, 1), device=x.device, dtype=torch.float32)
     keep.bernoulli_(1.0 - p, generator=generator)
-    return x * (keep / (1.0 - p)).to(x.dtype)
+    return x * (keep[offset:offset + b] / (1.0 - p)).to(x.dtype)
 
 
 class DoubleConv(nn.Module):

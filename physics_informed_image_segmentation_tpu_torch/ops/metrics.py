@@ -42,14 +42,22 @@ def dice_score(
     threshold: float = 0.5,
     smooth: float = _SMOOTH,
     mask: Optional[torch.Tensor] = None,
+    reduce=None,
 ) -> torch.Tensor:
-    """Global thresholded Dice over the flattened batch."""
+    """Global thresholded Dice over the flattened batch.
+
+    ``reduce``: for a batch sharded over ranks, a sum over the ranks
+    applied to the three sums before the ratio is formed.
+    """
     p = (predictions > threshold).to(predictions.dtype)
     if mask is not None:
         p = p * mask
         targets = targets * mask
     intersection = torch.sum(p * targets)
-    return (2.0 * intersection + smooth) / (torch.sum(p) + torch.sum(targets) + smooth)
+    if reduce is None:
+        return (2.0 * intersection + smooth) / (torch.sum(p) + torch.sum(targets) + smooth)
+    intersection, sp, st = reduce(torch.stack([intersection, torch.sum(p), torch.sum(targets)]))
+    return (2.0 * intersection + smooth) / (sp + st + smooth)
 
 
 def _flatten_per_sample(x: torch.Tensor) -> torch.Tensor:

@@ -194,12 +194,20 @@ def fused_loss_components(
     mask: Optional[torch.Tensor] = None,
     need_pde: bool = True,
     need_phase_field: bool = True,
+    reduce=None,
+    plain: bool = False,
 ) -> dict:
     """Loss components from the fused sums; the same contract as the plain
     component computation of :func:`..train.objective.make_loss_and_components`.
 
     Accepts (B, H, W) or (B, H, W, 1) predictions/targets; ``mask`` is a
     per-sample validity mask broadcastable to the prediction.
+
+    ``reduce``: for a batch sharded over ranks, a differentiable sum over
+    the ranks (:func:`..parallel.mesh.all_sum`), applied to the six totals
+    and the valid-pixel count before the ratios are formed, so every rank
+    gets the loss of the global batch.  ``plain`` takes the plain version
+    on any device.
     """
     if pred.dim() == 4:
         pred = pred[..., 0]
@@ -210,22 +218,26 @@ def fused_loss_components(
     else:
         m = mask.to(torch.float32).reshape(b, -1)[:, :1].contiguous()
 
-    sums = fused_physics_sums(
-        pred.to(torch.float32).contiguous(),
-        target.to(torch.float32).contiguous(),
-        m,
-        diffusion_coeff,
-        reaction_threshold,
-        epsilon,
-        use_reaction_term,
-    )
-    inter, su, st = torch.sum(sums[:, 0]), torch.sum(sums[:, 1]), torch.sum(sums[:, 2])
-    n_valid = torch.sum(m) * (h * w)
+    u, t = pred.to(torch.float32).contiguous(), target.to(torch.float32).contiguous()
+    if plain:
+        _check_inputs(u, t, m)
+        sums = fused_physics_sums_reference(u, t, m, diffusion_coeff, reaction_threshold,
+                                            epsilon, use_reaction_term)
+    else:
+        sums = fused_physics_sums(u, t, m, diffusion_coeff, reaction_threshold, epsilon,
+                                  use_reaction_term)
+    if reduce is None:
+        inter, su, st = torch.sum(sums[:, 0]), torch.sum(sums[:, 1]), torch.sum(sums[:, 2])
+        bce, rd, pf = torch.sum(sums[:, 3]), torch.sum(sums[:, 4]), torch.sum(sums[:, 5])
+        n_valid = torch.sum(m) * (h * w)
+    else:
+        totals = reduce(torch.cat([sums.sum(0), (torch.sum(m) * (h * w)).reshape(1)]))
+        inter, su, st, bce, rd, pf, n_valid = totals.unbind()
     dice = (2.0 * inter + smooth) / (su + st + smooth)
     zero = torch.zeros((), dtype=torch.float32, device=pred.device)
     return {
         "dice_loss": 1.0 - dice,
-        "bce_loss": torch.sum(sums[:, 3]) / n_valid,
-        "pde_loss": torch.sum(sums[:, 4]) / n_valid if need_pde else zero,
-        "phase_field_loss": torch.sum(sums[:, 5]) / n_valid if need_phase_field else zero,
+        "bce_loss": bce / n_valid,
+        "pde_loss": rd / n_valid if need_pde else zero,
+        "phase_field_loss": pf / n_valid if need_phase_field else zero,
     }

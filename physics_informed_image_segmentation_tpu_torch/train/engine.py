@@ -125,16 +125,20 @@ def _sample_mask(valid: torch.Tensor, ndim: int) -> torch.Tensor:
     return valid.reshape((valid.shape[0],) + (1,) * (ndim - 1))
 
 
-def _batch_metrics(pred, target, valid) -> dict:
-    """Per-sample Dice/IoU/Boundary-F1 sums over valid samples."""
+def _batch_metrics(pred, target, valid, reduce=None) -> dict:
+    """Per-sample Dice/IoU/Boundary-F1 sums over valid samples (summed over
+    the ranks by ``reduce`` when the batch is sharded)."""
     p2 = pred[..., 0] if pred.dim() == 4 else pred
     t2 = target[..., 0] if target.dim() == 4 else target
-    return {
+    out = {
         "dice_sum": torch.sum(M.dice_score_per_sample(p2, t2) * valid),
         "iou_sum": torch.sum(M.iou_score_per_sample(p2, t2) * valid),
         "bf1_sum": torch.sum(M.boundary_f1_per_sample(p2, t2) * valid),
         "n": torch.sum(valid),
     }
+    if reduce is not None:
+        out = dict(zip(out, reduce(torch.stack(list(out.values()))).unbind()))
+    return out
 
 
 def _to_host(outs: list[dict]) -> dict:
@@ -153,30 +157,49 @@ def _per_sample_means(cols: dict, out: dict, dice_key: str) -> None:
 
 
 def make_train_step_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
-                       precision: str = "f32"):
+                       precision: str = "f32", shard=None):
     """``step(state, x, y, valid) -> (state, out)``: one optimizer step on
-    a (B, H, W, 1) batch; ``out`` holds device scalars."""
-    loss_fn = make_loss_and_components(loss_cfg)
+    a (B, H, W, 1) batch; ``out`` holds device scalars.
+
+    ``shard`` (``None`` for one process; :class:`..parallel.sharding.MeshShard`
+    makes one) runs the step on a batch sharded over ranks.  The batch is
+    then the global one, replicated on every rank, and ``shard`` provides
+    ``local(x)`` (this rank's share of a batch tensor),
+    ``forward(model, x, precision, generator)`` (the model on that share),
+    ``all_sum(t)`` (a differentiable sum over the ranks, applied to the
+    losses' and metrics' sums before any ratio) and ``reduce_grads(grads)``
+    (the gradients summed over the ranks): the losses and metrics are those
+    of the global batch, and every rank applies the global gradient.
+    """
+    reduce = None if shard is None else shard.all_sum
+    loss_fn = make_loss_and_components(loss_cfg, reduce)
+    forward = forward_nhwc if shard is None else shard.forward
 
     def step(state: TrainState, x, y, valid):
+        if shard is not None:
+            x, y, valid = shard.local(x), shard.local(y), shard.local(valid)
         state.model.train()
-        pred = forward_nhwc(state.model, x, precision, state.dropout_generator)
+        pred = forward(state.model, x, precision, state.dropout_generator)
         total, comps = loss_fn(pred, y, _sample_mask(valid, x.dim()))
         grads = torch.autograd.grad(total, state.optimizer.params)
+        if shard is not None:
+            grads = shard.reduce_grads(grads)
         state.optimizer.step(grads)
         out = {"loss": total.detach(), **{k: v.detach() for k, v in comps.items()}}
         if compute_metrics:
-            out.update(_batch_metrics(pred.detach(), y, valid))
+            out.update(_batch_metrics(pred.detach(), y, valid, reduce))
         return state, out
 
     return step
 
 
 def make_train_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
-                        precision: str = "f32"):
+                        precision: str = "f32", shard=None):
     """``epoch_fn(state, images, masks, idx, valid) -> (state, metrics)``
-    with ``metrics`` host floats; ``idx``/``valid`` are (nb, B)."""
-    step = make_train_step_fn(loss_cfg, compute_metrics=compute_metrics, precision=precision)
+    with ``metrics`` host floats; ``idx``/``valid`` are (nb, B).  ``shard``
+    as in :func:`make_train_step_fn`."""
+    step = make_train_step_fn(loss_cfg, compute_metrics=compute_metrics, precision=precision,
+                              shard=shard)
 
     def epoch_fn(state: TrainState, images, masks, idx, valid):
         outs = []
@@ -193,12 +216,15 @@ def make_train_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
 
 
 def make_eval_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
-                       precision: str = "f32"):
+                       precision: str = "f32", shard=None):
     """``epoch_fn(model, images, masks, idx, valid) -> metrics``: a
     validation pass without gradients.  ``dice_score`` is the batch-mean
     of the global thresholded Dice; ``iou_score`` / ``boundary_f1_score``
-    (and ``per_sample_dice``) are per-sample means."""
-    loss_fn = make_loss_and_components(loss_cfg)
+    (and ``per_sample_dice``) are per-sample means.  ``shard`` as in
+    :func:`make_train_step_fn`."""
+    reduce = None if shard is None else shard.all_sum
+    loss_fn = make_loss_and_components(loss_cfg, reduce)
+    forward = forward_nhwc if shard is None else shard.forward
 
     @torch.no_grad()
     def epoch_fn(model, images, masks, idx, valid):
@@ -206,13 +232,16 @@ def make_eval_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
         outs = []
         for b in range(idx.shape[0]):
             x, y, valid_b = images[idx[b]], masks[idx[b]], valid[b]
-            pred = forward_nhwc(model, x, precision)
+            if shard is not None:
+                x, y, valid_b = shard.local(x), shard.local(y), shard.local(valid_b)
+            pred = forward(model, x, precision)
             total, comps = loss_fn(pred, y, _sample_mask(valid_b, x.dim()))
             p2, y2 = pred[..., 0], y[..., 0]
             out = {"loss": total, **comps,
-                   "global_dice": M.dice_score(p2, y2, mask=_sample_mask(valid_b, p2.dim()))}
+                   "global_dice": M.dice_score(p2, y2, mask=_sample_mask(valid_b, p2.dim()),
+                                               reduce=reduce)}
             if compute_metrics:
-                out.update(_batch_metrics(pred, y, valid_b))
+                out.update(_batch_metrics(pred, y, valid_b, reduce))
             outs.append(out)
         cols = _to_host(outs)
         results = {k: float(cols[k].mean()) for k in _LOSS_KEYS}

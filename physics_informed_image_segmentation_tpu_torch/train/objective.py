@@ -63,15 +63,21 @@ def _total(cfg: LossConfig, comps: dict) -> torch.Tensor:
     )
 
 
-def make_loss_and_components(cfg: LossConfig):
+def make_loss_and_components(cfg: LossConfig, reduce=None):
     """Returns ``f(pred, target, mask) -> (total_loss, components_dict)``.
 
     The components dict always has keys dice_loss / bce_loss / pde_loss /
     phase_field_loss (disabled terms are 0.0), computed in the same pass
     as the loss.
+
+    ``reduce``: for a batch sharded over ranks, a differentiable sum over
+    the ranks (:func:`..parallel.mesh.all_sum`).  The per-image sums and
+    the valid-pixel count are then reduced before Dice's ratio and the
+    means are formed, so the loss is that of the global batch: the kernel
+    K1 when it would serve the batch, else its plain version.
     """
 
-    def kernel_loss_fn(pred, target, mask=None):
+    def kernel_loss_fn(pred, target, mask=None, plain=False):
         from ..ops import physics_kernel
 
         comps = physics_kernel.fused_loss_components(
@@ -85,6 +91,8 @@ def make_loss_and_components(cfg: LossConfig):
             mask=mask,
             need_pde=cfg.pde_weight > 0,
             need_phase_field=cfg.phase_field_weight > 0,
+            reduce=reduce,
+            plain=plain,
         )
         return _total(cfg, comps), comps
 
@@ -103,7 +111,7 @@ def make_loss_and_components(cfg: LossConfig):
         )
         return _total(cfg, comps), comps
 
-    if cfg.backend == "torch":
+    if cfg.backend == "torch" and reduce is None:
         return plain_loss_fn
 
     def loss_fn(pred, target, mask=None):
@@ -112,7 +120,10 @@ def make_loss_and_components(cfg: LossConfig):
                 f"backend='cuda' needs CUDA tensors; got a tensor on {pred.device}"
             )
         # Dice+BCE alone (Stage I) has no kernel: the plain path serves it
-        if pred.is_cuda and cfg.uses_physics:
+        use_kernel = pred.is_cuda and cfg.uses_physics and cfg.backend != "torch"
+        if reduce is not None:
+            return kernel_loss_fn(pred, target, mask, plain=not use_kernel)
+        if use_kernel:
             return kernel_loss_fn(pred, target, mask)
         return plain_loss_fn(pred, target, mask)
 

@@ -1,15 +1,18 @@
 """Where a Stage II training step spends its time on the GPU.
 
     python -m physics_informed_image_segmentation_tpu_torch.utils.profile_step \
-        [--steps 8] [--optimizer adamw|pallas_adamw|...]
+        [--steps 8] [--optimizer adamw|pallas_adamw|...] [--megapixel]
 
 Trains the full-width U-Net (base_channels 64, 128x128, batch 8, bf16) on
 synthetic blobs with the Stage II objective and the named optimizer (a
 ``create_train_state`` name): one warm-up epoch, then one epoch
-unprofiled and one under ``torch.profiler``.  Prints the host wall time
-per step, the device's busy time and idle share over that window, the
-device time of the fused physics kernels, of the optimizer's kernels,
-and the kernels that take the most device time.  Needs a CUDA GPU.
+unprofiled and one under ``torch.profiler``.  With ``--megapixel`` the
+step is instead the data×space halo step of ``parallel/megapixel.py`` in a
+world of one (1024x1024, batch 1), with its own warm-up and windows of
+``--steps`` steps.  Prints the host wall time per step, the device's busy
+time and idle share over that window, the device time of the fused
+physics kernels (K1, K3), of the optimizer's kernels, and the kernels that
+take the most device time.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -57,24 +60,48 @@ def main(argv=None) -> None:
     parser.add_argument("--top", type=int, default=12, help="kernels to list")
     parser.add_argument("--optimizer", default="adamw",
                         help="optimizer name for create_train_state (default: adamw)")
+    parser.add_argument("--megapixel", action="store_true",
+                        help="profile the data×space halo step at 1024x1024 in a world of one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA GPU")
 
-    batch = 8
-    n = batch * args.steps
-    images, masks = make_blobs(n, 128, 128, seed=1)
-    data = DeviceDataset.from_numpy(images, masks, "cuda")
     model = UNet(base_channels=64, generator=torch.Generator().manual_seed(0)).cuda()
     state = create_train_state(model, 1e-5, optimizer=args.optimizer)
     cfg = LossConfig(pde_weight=1e-4, phase_field_weight=1e-4, diffusion_coeff=5.0,
                      reaction_threshold=0.5, epsilon=0.05)
-    epoch_fn = make_train_epoch_fn(cfg, precision="bf16")
-    gen = torch.Generator().manual_seed(0)
+    if args.megapixel:
+        import torch.distributed as dist
 
-    def epoch():
-        idx, valid = epoch_batch_indices(n, batch, shuffle=True, generator=gen, device="cuda")
-        return epoch_fn(state, data.images, data.masks, idx, valid)
+        from ..parallel import (
+            initialize_distributed, make_mesh, make_sharded_train_step, shard_train_state,
+        )
+
+        initialize_distributed()
+        mesh = make_mesh()
+        state = shard_train_state(state, mesh)
+        batch, n = 1, args.steps
+        images, masks = make_blobs(1, 1024, 1024, seed=1)
+        x, y = torch.as_tensor(images, device="cuda"), torch.as_tensor(masks, device="cuda")
+        step = make_sharded_train_step(cfg, mesh, spatial=True, halo_physics=True,
+                                       precision="bf16")
+        label = "data×space halo step at world 1, base_channels 64, 1024x1024"
+
+        def epoch():
+            for _ in range(args.steps):
+                step(state, x, y)
+    else:
+        batch = 8
+        n = batch * args.steps
+        images, masks = make_blobs(n, 128, 128, seed=1)
+        data = DeviceDataset.from_numpy(images, masks, "cuda")
+        epoch_fn = make_train_epoch_fn(cfg, precision="bf16")
+        gen = torch.Generator().manual_seed(0)
+        label = "Stage II train, base_channels 64, 128x128"
+
+        def epoch():
+            idx, valid = epoch_batch_indices(n, batch, shuffle=True, generator=gen, device="cuda")
+            return epoch_fn(state, data.images, data.masks, idx, valid)
 
     epoch()  # warm-up: cuDNN algorithm choice, kernel build
     torch.cuda.synchronize()
@@ -89,9 +116,10 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
+    if args.megapixel:
+        dist.destroy_process_group()
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"Stage II train, {args.optimizer}, base_channels 64, 128x128, batch {batch}, bf16, "
-          f"{args.steps} steps: "
+    print(f"{label}, {args.optimizer}, batch {batch}, bf16, {args.steps} steps: "
           f"{wall_plain / args.steps * 1e3:.3f} ms/step wall ({n / wall_plain:.1f} img/s) "
           f"unprofiled, {wall / args.steps * 1e3:.3f} ms/step under the profiler")
     busy, span = _busy_us(prof.events())
@@ -106,10 +134,11 @@ def main(argv=None) -> None:
                and _device_time(e) > 0]
     kernels.sort(key=_device_time, reverse=True)
     total = sum(_device_time(e) for e in kernels)
-    k1 = [e for e in kernels if "physics_" in e.key]
-    for e in k1:
-        print(f"K1 {e.key[:60]}: {_device_time(e) / e.count:.2f} µs/launch device, "
-              f"{e.count} launches")
+    for e in kernels:
+        kind = "K1" if "physics_" in e.key else "K3" if "padded_" in e.key else None
+        if kind:
+            print(f"{kind} {e.key[:60]}: {_device_time(e) / e.count:.2f} µs/launch device, "
+                  f"{e.count} launches")
     opt = [e for e in kernels if "adamw_kernel" in e.key or "multi_tensor_apply" in e.key]
     print(f"optimizer ({args.optimizer}) device time: "
           f"{sum(_device_time(e) for e in opt) / args.steps:.1f} µs/step in "

@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the fused physics-sums CUDA kernel (K1) and the
-fused AdamW kernel (K2) against their plain versions, and the Stage II
-objective and train step through them.
+"""PyTorch port on the card: the fused physics-sums CUDA kernel (K1), the
+fused AdamW kernel (K2) and the halo-padded physics kernel (K3) against
+their plain versions, and the Stage II objective, the train step and the
+halo physics loss through them.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these tests skip on a
 machine without a GPU.  Run them on the card with
@@ -9,13 +10,14 @@ machine without a GPU.  Run them on the card with
 
 Tolerances: the kernel and the plain version sum in float32 in different
 orders (no atomics), so sums agree to rtol 1e-5 and gradients to
-atol 1e-6·max|g| + rtol 1e-5.  K2 rounds every operation as its plain
-version does, so the two must be bit-equal.
+atol 1e-6·max|g| + rtol 1e-5 (K1 and K3 alike).  K2 rounds every
+operation as its plain version does, so the two must be bit-equal.
 """
 
 import pytest
 import torch
 
+from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
 from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
 from physics_informed_image_segmentation_tpu_torch.train import adamw_kernel as K2
 from physics_informed_image_segmentation_tpu_torch.train import engine
@@ -178,3 +180,72 @@ def test_pallas_adamw_train_step_goes_through_the_kernel(cuda):
         torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = old
     for a, b in zip(params["adamw"], params["pallas_adamw"]):
         assert torch.equal(a, b)
+
+
+def _k3_grads(fn, p, cot, use_reaction):
+    pp = p.clone().requires_grad_(True)
+    sums = fn(pp, D, A, EPS, use_reaction)
+    return sums.detach(), torch.autograd.grad(sums, pp, cot)[0]
+
+
+@pytest.mark.parametrize("shape,use_reaction,saturated", [
+    ((1, 1026, 1026), True, False), ((8, 130, 130), True, False), ((3, 37, 53), True, False),
+    ((2, 4, 35), True, False), ((2, 18, 26), True, True), ((8, 130, 130), False, False),
+])
+def test_padded_kernel_matches_plain_version(cuda, shape, use_reaction, saturated):
+    g = torch.Generator().manual_seed(5)
+    if saturated:
+        p = torch.randint(0, 3, shape, generator=g).float() / 2.0
+    else:
+        p = 0.02 + 0.96 * torch.rand(shape, generator=g)
+    p, cot = p.to(cuda), torch.randn((shape[0], 2), generator=g).to(cuda)
+    ks, kdp = _k3_grads(K3.PaddedPhysicsSums.apply, p, cot, use_reaction)
+    ps, pdp = _k3_grads(K3.padded_physics_sums_reference, p, cot, use_reaction)
+    torch.cuda.synchronize()
+    assert torch.all((ks - ps).abs() <= 1e-5 * ps.abs())
+    assert torch.all((kdp - pdp).abs() <= 1e-6 * pdp.abs().max() + 1e-5 * pdp.abs())
+    assert torch.all(kdp[:, [0, 0, -1, -1], [0, -1, 0, -1]] == 0)
+
+
+def test_padded_kernel_counts_repeats_and_checks(cuda):
+    p = (0.02 + 0.96 * torch.rand((8, 130, 130), generator=torch.Generator().manual_seed(6)))
+    p = p.to(cuda)
+    K3.reset_launch_counts()
+    a, _ = _k3_grads(K3.padded_physics_sums, p, torch.ones((8, 2), device=cuda), True)
+    b = K3.padded_physics_sums(p, D, A, EPS)
+    torch.cuda.synchronize()
+    assert K3.launch_counts == {"padded_physics_fwd": 2, "padded_physics_bwd": 1}
+    assert torch.equal(a, b)
+    with pytest.raises(TypeError):
+        K3.padded_physics_sums(p.double(), D, A, EPS)
+    with pytest.raises(ValueError):
+        K3.padded_physics_sums(p.transpose(1, 2), D, A, EPS)
+
+
+def test_halo_physics_loss_goes_through_the_padded_kernel(cuda):
+    """World 1 on NCCL: both means from one K3 launch each way, equal to
+    the plain physics losses."""
+    import torch.distributed as dist
+
+    from physics_informed_image_segmentation_tpu_torch.ops import pde
+    from physics_informed_image_segmentation_tpu_torch.parallel import (
+        halo_physics_loss_pallas,
+        initialize_distributed,
+        make_mesh,
+    )
+
+    initialize_distributed()
+    try:
+        mesh = make_mesh()
+        u = (0.05 + 0.9 * torch.rand((2, 64, 48), generator=torch.Generator().manual_seed(7)))
+        u = u.to(cuda).requires_grad_(True)
+        K3.reset_launch_counts()
+        rd, pf = halo_physics_loss_pallas(u, mesh, D, A, EPS)
+        (rd + pf).backward()
+        torch.cuda.synchronize()
+        assert K3.launch_counts == {"padded_physics_fwd": 1, "padded_physics_bwd": 1}
+        ref_rd, ref_pf = pde.pde_residual_loss(u, D, A), pde.phase_field_loss(u, EPS)
+        assert abs(float(rd.detach()) - float(ref_rd)) <= 1e-5 * abs(float(ref_rd))
+        assert abs(float(pf.detach()) - float(ref_pf)) <= 1e-5 * abs(float(ref_pf))
+    finally:
+        dist.destroy_process_group()
