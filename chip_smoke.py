@@ -7,8 +7,8 @@ Phases (any failure raises, and the script exits non-zero without the
 final result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the training paths from ``csrc/`` (one
-   ``nvcc`` per source, started together), timing the build;
+2. build every CUDA kernel from ``csrc/`` (four sources, one ``nvcc``
+   each, started together), timing the build;
 3. hold each kernel against its plain PyTorch version on the card: K1 at
    the training shape and at shapes that stress row tiling, odd sizes,
    masked slots, saturated probabilities and the diffusion-only residual;
@@ -19,7 +19,12 @@ final result line):
 5. drive the port's main path, ``train()``, at full width (U-Net with
    base_channels 64, 128x128 images, batch 8, bf16, one epoch per stage)
    and check that Stage II went through K1, with the expected launch
-   counts, and that every logged loss is finite;
+   counts, and that every logged loss is finite; then serve the ``.pth``
+   it wrote: a ``Predictor`` at full width, ``predict`` on 20 images (a
+   padded last chunk) against the model's own forward, ``tta`` on a
+   symmetric input, ``predict_device`` on 64 device-resident images
+   against ``predict`` and its images per second, ``predict_tiled`` on a
+   512x512 image;
 6. drive the K2 path, ``create_train_state(optimizer="pallas_adamw")``
    with the Stage II objective through ``train_stage``, at the same width
    and check its launch counts; then 3 float32 steps with deterministic
@@ -33,13 +38,20 @@ final result line):
    sizes, the smallest band, saturated u and without the reaction term;
    and K3 on the four ghost-filled row bands of a (2,256,256) field
    against K1 on the whole field, sums and folded gradients;
+   then K4 (the 3x3 convolution: forward in both tap orders, dx and dW)
+   against its plain version at the probe's shape (8,128,128,64) in bf16,
+   the JAX tests' shapes, several tiles with ragged edges, two channel
+   chunks and an all-ones input, and in float32 against ``F.conv2d``;
 9. the data×space path at world 1 (NCCL through a file store): the
    megapixel train step (``parallel/megapixel.py``: 1024x1024, base 64,
    bf16, 3 steps) with K3's launch counts and its peak memory; one f32
    halo step at 128x128 against the unsharded K1 step; one
    data-parallel epoch of ``make_sharded_epoch_fns`` through
    ``train_stage`` with K1's launch counts;
-10. time the kernels, their plain versions, the library's fused AdamW and
+   then the conv probe (``utils/conv_probe.py``) at full width with K4's
+   launch counts;
+10. time the kernels, their plain versions, the library's calls (fused
+   AdamW, ``F.conv2d`` and its weight gradient) and
    steady-state Stage II training with "adamw" and "pallas_adamw", with
    CUDA events;
 11. print one JSON line describing every kernel, then the result line.
@@ -52,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -61,6 +74,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 PKG = "physics_informed_image_segmentation_tpu_torch"
@@ -82,6 +96,25 @@ ADAMW_FLOPS_PER_PARAM = 15
 # fields per interior pixel plus its gather per padded pixel
 K3_FWD_FLOPS_PER_PIXEL = 28
 K3_BWD_FLOPS_PER_PIXEL = 45
+
+# K4 against its plain version.  float32: both sum the same products in
+# float32 in different orders; forward rtol 1e-5 / atol 1e-5, gradients
+# (sums over up to B*H*W pixels) rtol 1e-4 / atol 1e-4, the bars the JAX
+# package's tests hold its TPU kernel to.  bf16: both accumulate in float32
+# and round once, so they differ by at most one bf16 rounding where the
+# float32 sums fall on either side of a tie: rtol 2^-7, atol 1e-2.  Against
+# cuDNN in float32 without TF32: rtol 1e-4 elementwise plus 5e-5 of the
+# tensor's largest magnitude.  cuDNN picks its own algorithm (Winograd, FFT,
+# split sums); its deterministic weight gradient has read 1e-5 of the
+# largest magnitude away from the kernel where the kernel and the plain
+# float32 version were 3e-7 apart, so the bar is set by cuDNN's error.
+K4_F32_FWD = (1e-5, 1e-5)
+K4_F32_GRAD = (1e-4, 1e-4)
+K4_BF16 = (2.0 ** -7, 1e-2)
+K4_CUDNN_RTOL, K4_CUDNN_ATOL_REL = 1e-4, 5e-5
+PEAK_BF16_FLOPS = 989e12
+PROBE_SHAPE = (8, 128, 128, 64, 64)
+PROBE_STEPS = 16
 
 D, A, EPS = 5.0, 0.5, 0.05
 STAGE2 = dict(pde_weight=1e-4, phase_field_weight=1e-4, diffusion_coeff=D,
@@ -313,8 +346,9 @@ def check_unet() -> None:
     check(err <= 1e-4, "U-Net forward on the card disagrees with the CPU")
 
 
-def drive_main_path() -> dict:
-    """The port's train() at full width; returns its K1 launch counts."""
+def drive_main_path(keep_model: Path) -> dict:
+    """The port's train() at full width; returns its K1 launch counts and
+    copies the Stage II ``.pth`` it wrote to ``keep_model``."""
     from physics_informed_image_segmentation_tpu_torch.data import DeviceDataset, make_blobs
     from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
     from physics_informed_image_segmentation_tpu_torch.train import train
@@ -341,6 +375,7 @@ def drive_main_path() -> dict:
         seconds = time.perf_counter() - t0
         counts = dict(K.launch_counts)
         check(Path(res["pde_model"]).exists(), "Stage II checkpoint missing")
+        shutil.copyfile(res["pde_model"], keep_model)
 
     steps, val_batches = -(-n_train // batch), -(-n_val // batch)
     print(f"train(): base_channels 64, 128x128, batch {batch}, bf16, "
@@ -362,6 +397,100 @@ def drive_main_path() -> dict:
     dice = res["test_metrics_stage2"]["dice_scores"]
     check(len(dice) == n_test and np.isfinite(dice).all(), "test metrics malformed")
     return counts
+
+
+# Serving.  A Predictor's answers against the same bf16 model called
+# directly on the same padded chunks, and predict_device against predict:
+# the same arithmetic, so equal bits are expected; 2e-3 on probabilities
+# allows a bf16 rounding to flip should cuDNN pick another algorithm for a
+# call, and is far below the difference between two images.  Against the
+# float32 forward (TF32 off): 5e-2, the rounding of bf16 (8 bits) through
+# the U-Net's 23 layers.
+# tta on a symmetric input: its 8 views are one image, so the mean of the
+# 8 predictions moved back is symmetric as far as those predictions are
+# equal; they sit at different places of one 8B-image batch, where cuDNN's
+# bf16 results have read up to a rounding of the logit apart (4.7e-5 on the
+# probability): 5e-4.
+SERVE_SAME_ATOL = 2e-3
+SERVE_TTA_ATOL = 5e-4
+SERVE_BF16_ATOL = 5e-2
+
+
+def drive_serving(model_path: Path) -> dict:
+    """Serving at full width: a ``Predictor`` (base 64, bf16, 128x128,
+    batch 8) on the ``.pth`` that the smoke ``train()`` wrote; returns the
+    images per second of ``predict_device``."""
+    from physics_informed_image_segmentation_tpu_torch import UNet
+    from physics_informed_image_segmentation_tpu_torch.data import make_blobs
+    from physics_informed_image_segmentation_tpu_torch.serve import Predictor
+    from physics_informed_image_segmentation_tpu_torch.train.checkpoint import load_params
+
+    p = Predictor(model_path)
+    check(p.device.type == "cuda" and p.dtype == torch.bfloat16 and p.batch_size == 8,
+          "the Predictor's defaults are not the card, bf16 and batch 8")
+    images = make_blobs(20, 128, 128, seed=21)[0]
+    probs = p.predict(images)  # 20 = two chunks and a padded one
+    check(probs.shape == (20, 128, 128, 1) and probs.dtype == np.float32, f"predict {probs.shape}")
+    check(bool(np.isfinite(probs).all() and (probs > 0).all() and (probs < 1).all()),
+          "predict left (0, 1)")
+
+    model = load_params(model_path, UNet(base_channels=64)).cuda().eval()
+    x = torch.as_tensor(images, device="cuda").permute(0, 3, 1, 2)
+    with torch.no_grad():
+        with deterministic_f32():
+            ref32 = model(x).permute(0, 2, 3, 1).cpu().numpy()
+        model.to(torch.bfloat16)
+        padded = torch.cat([x, torch.zeros_like(x[:4])]).to(torch.bfloat16)
+        ref16 = torch.cat([model(padded[i:i + 8]) for i in (0, 8, 16)])[:20]
+        ref16 = ref16.permute(0, 2, 3, 1).cpu().numpy()
+    d16, d32 = float(np.abs(probs - ref16).max()), float(np.abs(probs - ref32).max())
+    print(f"Predictor.predict on 20 images (base 64, bf16, 128x128, batch 8): max|d| against the "
+          f"bf16 model called directly {d16:.3e}, against its float32 forward {d32:.3e}; "
+          f"probabilities in [{probs.min():.4f}, {probs.max():.4f}]")
+    check(d16 <= SERVE_SAME_ATOL, f"predict differs from the model's own bf16 forward by {d16}")
+    check(d32 <= SERVE_BF16_ATOL, f"predict differs from the float32 forward by {d32}")
+    masks = p.predict(images, threshold=0.5)
+    check(bool(np.array_equal(masks, (probs > 0.5).astype(np.float32))), "threshold is not '>'")
+
+    # the largest of the 8 views: symmetric to the bit, whatever the order
+    sym = images[:3]
+    sym = np.maximum(np.maximum(sym, sym[:, ::-1]), np.maximum(sym[:, :, ::-1], sym[:, ::-1, ::-1]))
+    sym = np.maximum(sym, sym.transpose(0, 2, 1, 3))
+    tta = p.predict(sym, tta=True)
+    asym = max(float(np.abs(tta - tta[:, ::-1]).max()), float(np.abs(tta - tta[:, :, ::-1]).max()),
+               float(np.abs(tta - tta.transpose(0, 2, 1, 3)).max()))
+    print(f"tta on a symmetric input: largest asymmetry of the output {asym:.3e}")
+    check(tta.shape == (3, 128, 128, 1) and asym <= SERVE_TTA_ATOL,
+          f"tta output is not symmetric: {asym}")
+
+    many = make_blobs(64, 128, 128, seed=22)[0]
+    on_card = torch.as_tensor(many, device="cuda")
+    dev = p.predict_device(on_card)
+    check(isinstance(dev, torch.Tensor) and dev.is_cuda and dev.shape == (64, 128, 128, 1)
+          and dev.dtype == torch.float32, "predict_device must return a float32 device tensor")
+    dd = float(np.abs(dev.cpu().numpy() - p.predict(many)).max())
+    print(f"predict_device on 64 device-resident images against predict: max|d| {dd:.3e}")
+    check(dd <= SERVE_SAME_ATOL, f"predict_device differs from predict by {dd}")
+
+    big = make_blobs(1, 512, 512, seed=23)[0][0]
+    tiled = p.predict_tiled(big)
+    check(tiled.shape == (512, 512, 1) and bool(np.isfinite(tiled).all()),
+          f"predict_tiled returned {tiled.shape}")
+    print(f"predict_tiled on 512x512 (25 tiles of 128, overlap 32): probabilities in "
+          f"[{tiled.min():.4f}, {tiled.max():.4f}]")
+
+    rates = []
+    for i in range(6):  # the first run is warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p.predict_device(on_card)
+        torch.cuda.synchronize()
+        if i > 0:
+            rates.append(64 / (time.perf_counter() - t0))
+    rate = statistics.median(rates)
+    print(f"predict_device: {rate:.1f} img/s (median of {len(rates)} runs over 64 device-resident "
+          f"images; base 64, 128x128, batch 8, bf16)")
+    return {"predict_device_img_per_s": rate, "runs": rates}
 
 
 def unet64(seed: int = 0):
@@ -616,6 +745,177 @@ def check_k3_against_k1() -> None:
         check(bool(torch.all((total.detach() - ref).abs() <= SUM_RTOL * ref.abs())),
               "K3 over bands and K1 disagree on the sums")
         check(grad_ok(du_k3, du_k1), "K3's folded band gradients and K1's du disagree")
+
+
+def k4_case(shape, dtype, seed, scale=0.1):
+    """x (B,H,W,Cin) ~ N(0,1), w (3,3,Cin,Cout) ~ scale N(0,1) and a
+    cotangent (B,H,W,Cout) ~ 0.1 N(0,1), in ``dtype`` on the card."""
+    b, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, h, w, cin), generator=g).to(dtype)
+    wt = (torch.randn((3, 3, cin, cout), generator=g) * scale).to(dtype)
+    cot = (torch.randn((b, h, w, cout), generator=g) * 0.1).to(dtype)
+    return x.cuda(), wt.cuda(), cot.cuda()
+
+
+def k4_grads(fn, x, wt, cot, paired):
+    xx, ww = x.clone().requires_grad_(True), wt.clone().requires_grad_(True)
+    out = fn(xx, ww, paired)
+    dx, dw = torch.autograd.grad(out, (xx, ww), cot)
+    torch.cuda.synchronize()
+    return out.detach(), dx, dw
+
+
+def close(k, p, tol) -> bool:
+    rtol, atol = tol
+    k, p = k.float(), p.float()
+    return bool(torch.all((k - p).abs() <= atol + rtol * p.abs()))
+
+
+def check_k4() -> dict:
+    """K4 (forward in both tap orders, dx, dW) against its plain version
+    and, in float32, against cuDNN; returns the probe shape's errors."""
+    from physics_informed_image_segmentation_tpu_torch.ops import conv_kernel as K4
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ("probe shape (8,128,128,64->64) bf16", PROBE_SHAPE, bf16, 0.05),
+        ("JAX test shape (2,16,16,8->8) f32", (2, 16, 16, 8, 8), f32, 0.1),
+        ("JAX test shape (1,8,32,4->12) f32", (1, 8, 32, 4, 12), f32, 0.1),
+        ("several tiles, ragged rows (2,44,64,16->24) f32", (2, 44, 64, 16, 24), f32, 0.1),
+        ("several tiles (2,44,64,16->24) bf16", (2, 44, 64, 16, 24), bf16, 0.1),
+        ("two channel chunks (1,16,32,72->136) f32", (1, 16, 32, 72, 136), f32, 0.1),
+        ("any W, ragged columns (1,20,24,8->8) f32", (1, 20, 24, 8, 8), f32, 0.1),
+        ("CUDA cores in bf16, Cin % 16 != 0 (2,16,16,8->8) bf16", (2, 16, 16, 8, 8), bf16, 0.1),
+        ("tensor cores, two chunks, ragged (1,20,24,80->136) bf16", (1, 20, 24, 80, 136), bf16,
+         0.1),
+    ]
+    errors = {}
+    for i, (label, shape, dtype, scale) in enumerate(cases):
+        x, wt, cot = k4_case(shape, dtype, seed=70 + i, scale=scale)
+        fwd_tol, grad_tol = (K4_F32_FWD, K4_F32_GRAD) if dtype == f32 else (K4_BF16, K4_BF16)
+        for paired in (False, True):
+            # Conv3x3Same takes any W; the public function keeps the JAX contract
+            ko, kdx, kdw = k4_grads(K4.Conv3x3Same.apply, x, wt, cot, paired)
+            po, pdx, pdw = k4_grads(K4.conv3x3_same_reference, x, wt, cot, paired)
+            errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in ((ko, po), (kdx, pdx), (kdw, pdw))]
+            print(f"K4 {label}, paired {paired}: max|d out| {errs[0]:.3e} (max|out| "
+                  f"{float(po.float().abs().max()):.3e}), max|d dx| {errs[1]:.3e}, max|d dw| "
+                  f"{errs[2]:.3e} (max|dw| {float(pdw.float().abs().max()):.3e})")
+            for name, a in (("out", ko), ("dx", kdx), ("dw", kdw)):
+                check(a.dtype == dtype and bool(torch.isfinite(a).all()),
+                      f"K4 {label}: kernel {name} has type {a.dtype} or is not finite")
+            check(close(ko, po, fwd_tol), f"K4 {label}, paired {paired}: forward beyond {fwd_tol}")
+            check(close(kdx, pdx, grad_tol), f"K4 {label}, paired {paired}: dx beyond {grad_tol}")
+            check(close(kdw, pdw, grad_tol), f"K4 {label}, paired {paired}: dw beyond {grad_tol}")
+            if dtype == f32:
+                with deterministic_f32():
+                    lo, ldx, ldw = k4_grads(
+                        lambda a, b, _: F.conv2d(a.permute(0, 3, 1, 2), b.permute(3, 2, 0, 1),
+                                                 padding=1).permute(0, 2, 3, 1), x, wt, cot, paired)
+                print("    against F.conv2d: max|d out| {:.3e}, max|d dx| {:.3e}, max|d dw| {:.3e}"
+                      .format(*(float((a - b).abs().max())
+                                for a, b in ((ko, lo), (kdx, ldx), (kdw, ldw)))))
+                for name, a, ref in (("out", ko, lo), ("dx", kdx, ldx), ("dw", kdw, ldw)):
+                    tol = (K4_CUDNN_RTOL, K4_CUDNN_ATOL_REL * float(ref.abs().max()))
+                    check(close(a, ref, tol), f"K4 {label}, paired {paired}: {name} differs from "
+                          f"cuDNN's by {float((a - ref).abs().max()):.3e}, beyond {tol}")
+            if i == 0:
+                errors["conv3x3_fwd_paired" if paired else "conv3x3_fwd"] = max(errs[0], errs[1])
+                errors["conv3x3_dw"] = max(errors.get("conv3x3_dw", 0.0), errs[2])
+    # all-ones: the sums count the taps that fall inside the image
+    for paired in (False, True):
+        ones = K4.conv3x3_same(torch.ones((1, 8, 16, 4), device="cuda"),
+                               torch.ones((3, 3, 4, 4), device="cuda"), paired)
+        got = [float(ones[0, 4, 8, 0]), float(ones[0, 0, 8, 1]), float(ones[0, 0, 0, 3]),
+               float(ones[0, 7, 15, 2])]
+        print(f"K4 all ones (1,8,16,4->4), paired {paired}: interior, edge, corners {got}")
+        check(got == [36.0, 24.0, 16.0, 16.0], f"K4 zero padding: {got} != [36, 24, 16, 16]")
+    # no atomics: the same inputs give the same bits
+    x, wt, cot = k4_case(PROBE_SHAPE, bf16, seed=70, scale=0.05)
+    check(torch.equal(K4.conv3x3_same(x, wt), K4.conv3x3_same(x, wt)),
+          "K4 forward does not repeat bit for bit")
+    check(torch.equal(K4._launch_dw(x, cot), K4._launch_dw(x, cot)),
+          "K4 dW does not repeat bit for bit")
+    torch.cuda.synchronize()
+    return errors
+
+
+def drive_probe() -> dict:
+    """The probe's path at full width through ``utils/conv_probe.py``:
+    (8,128,128,64) bf16, every row; returns its results and K4's launch
+    counts, read around it."""
+    from physics_informed_image_segmentation_tpu_torch.ops import conv_kernel as K4
+    from physics_informed_image_segmentation_tpu_torch.utils import conv_probe
+
+    K4.reset_launch_counts()
+    res = conv_probe.run_probe(steps=PROBE_STEPS)
+    torch.cuda.synchronize()
+    counts = dict(K4.launch_counts)
+    runs = conv_probe.WARMUP + conv_probe.TIMED
+    # a fwd step launches the forward kernel once; a fwdbwd step launches it
+    # twice (out and dx) and the dW kernels once
+    expect = {"conv3x3_fwd": 3 * runs * PROBE_STEPS, "conv3x3_fwd_paired": 3 * runs * PROBE_STEPS,
+              "conv3x3_dw": 2 * runs * PROBE_STEPS}
+    print(f"conv probe: K4 launches {counts}")
+    check(counts == expect, f"probe launches {counts}, expected {expect}")
+    check(res["shape"] == [8, 128, 128, 64] and res["device"] == "gpu", f"probe ran {res['shape']}")
+    for name, row in res["results"].items():
+        for label, cell in row.items():
+            check(np.isfinite(cell["us_per_step"]) and cell["us_per_step"] > 0,
+                  f"probe {name} {label}: {cell}")
+    return {"res": res, "counts": counts}
+
+
+def k4_bound_ms(shape, itemsize: int, dw: bool) -> tuple[float, str]:
+    """Least time for K4's work: the forward reads x and w and writes out,
+    dW reads x and g and writes the float32 (9, Cin, Cout); or the
+    2*B*H*W*9*Cin*Cout operations at the tensor cores' bf16 rate (the
+    operands' type at the probe's shape), whichever is larger."""
+    b, h, w, cin, cout = shape
+    pixels = b * h * w
+    if dw:
+        nbytes = pixels * (cin + cout) * itemsize + 9 * cin * cout * 4
+    else:
+        nbytes = pixels * (cin + cout) * itemsize + 9 * cin * cout * itemsize
+    flops = 2 * pixels * 9 * cin * cout
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_k4() -> dict:
+    """K4 at the probe's shape (bf16): each kernel, its plain version and
+    the library's call (``F.conv2d`` on channels-last operands;
+    ``torch.nn.grad.conv2d_weight`` for dW), median ms of 30 calls."""
+    from physics_informed_image_segmentation_tpu_torch.ops import conv_kernel as K4
+
+    x, wt, cot = k4_case(PROBE_SHAPE, torch.bfloat16, seed=80, scale=0.05)
+    w9 = wt.reshape(9, 64, 64)
+    xn, gn = x.permute(0, 3, 1, 2), cot.permute(0, 3, 1, 2)
+    wo = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    ww = wt.clone().requires_grad_(True)
+    plain_out = K4.conv3x3_same_reference(x, ww)
+    out = {}
+    with torch.no_grad():
+        lib_fwd = time_cuda(lambda: F.conv2d(xn, wo, padding=1))
+        for name, paired in (("conv3x3_fwd", False), ("conv3x3_fwd_paired", True)):
+            b_ms, b_by = k4_bound_ms(PROBE_SHAPE, 2, dw=False)
+            out[name] = dict(
+                ms=time_cuda(lambda: K4._launch_fwd(x, w9, paired)),
+                plain_ms=time_cuda(lambda: K4.conv3x3_same_reference(x, wt, paired)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_fwd)
+        b_ms, b_by = k4_bound_ms(PROBE_SHAPE, 2, dw=True)
+        out["conv3x3_dw"] = dict(
+            ms=time_cuda(lambda: K4._launch_dw(x, cot)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_cuda(lambda: torch.nn.grad.conv2d_weight(xn, wo.shape, gn, padding=1)))
+    out["conv3x3_dw"]["plain_ms"] = time_cuda(
+        lambda: torch.autograd.grad(plain_out, ww, cot, retain_graph=True))
+    for name, row in out.items():
+        print(f"K4 {name} at (8,128,128,64->64) bf16: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+              f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.5f} by {row['bound_by']})")
+    return out
 
 
 def drive_halo_path() -> dict:
@@ -927,7 +1227,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    built = build_all(["physics_sums", "adamw", "padded_physics"], verbose=True)
+    built = build_all(["physics_sums", "adamw", "padded_physics", "conv3x3"], verbose=True)
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
     errors = check_kernels()
@@ -935,7 +1235,14 @@ def main() -> int:
     torch.cuda.synchronize()
     check_unet()
     torch.cuda.synchronize()
-    counts = drive_main_path()
+    (REPO / "build").mkdir(exist_ok=True)  # git-ignored
+    served_model = REPO / "build" / "smoke_unet_pde_regularized.pth"
+    try:
+        counts = drive_main_path(served_model)
+        torch.cuda.synchronize()
+        serving = drive_serving(served_model)
+    finally:
+        served_model.unlink(missing_ok=True)
     torch.cuda.synchronize()
     k2_counts = drive_adamw_path()
     check_adamw_path_bit_equal()
@@ -944,9 +1251,12 @@ def main() -> int:
     torch.cuda.synchronize()
     errors.update(check_k3())
     check_k3_against_k1()
+    errors.update(check_k4())
     parallel = drive_parallel_paths()
+    probe = drive_probe()
     times = time_kernels()
     k3_times = time_k3()
+    k4_times = time_k4()
     k2_times = time_adamw()
     rates = {name: [] for name in ("adamw", "pallas_adamw")}
     for name in ("adamw", "pallas_adamw", "pallas_adamw", "adamw"):
@@ -988,6 +1298,12 @@ def main() -> int:
             "ms": mp[direction], "plain_ms": mp[f"plain_{direction}"],
             "bound_ms": mp[f"bound_{direction}"], "bound_by": mp[f"bound_{direction}_by"],
             "library_ms": None})
+    k4_lines = {"conv3x3_fwd": "212", "conv3x3_fwd_paired": "212", "conv3x3_dw": "232"}
+    for name, line in k4_lines.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/conv3x3.cu",
+            "replaces": f"physics_informed_image_segmentation_tpu/ops/pallas_conv.py:{line}",
+            "launches": probe["counts"][name], "max_abs_err": errors[name], **k4_times[name]})
     mres = parallel["halo"]["res"]
     print(json.dumps({"megapixel_step": {
         "image": mres["image"], "base_channels": 64, "precision": "bf16", "batch": 1,
@@ -995,6 +1311,7 @@ def main() -> int:
         "peak_bytes": mres["peak_bytes"]}, "halo_vs_unsharded": parallel["vs_unsharded"],
         "card": smi}))
     print(json.dumps({"stage2_train_img_per_s": rates, "card": smi}))
+    print(json.dumps({"serving": serving, "conv_probe": probe["res"], "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

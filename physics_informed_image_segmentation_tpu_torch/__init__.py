@@ -7,8 +7,11 @@ AdamW written by hand in CUDA (``csrc/physics_sums.cu``,
 ``csrc/adamw.cu``), and train-state checkpoints with resume.  The
 ``parallel`` subpackage trains data- and space-parallel over
 ``torch.distributed`` (NCCL on the GPU, gloo on the CPU), with the
-halo-padded physics kernel in CUDA (``csrc/padded_physics.cu``).  Entry
-points run on CUDA unless they are given ``device="cpu"``.
+halo-padded physics kernel in CUDA (``csrc/padded_physics.cu``).
+``serve`` and ``predict`` apply a trained model to new images, and
+``utils.conv_probe`` times the hand-written 3x3 convolution
+(``csrc/conv3x3.cu``) against cuDNN's.  Entry points run on CUDA unless
+they are given ``device="cpu"``.
 """
 
 from .models import UNet, count_parameters  # noqa: F401

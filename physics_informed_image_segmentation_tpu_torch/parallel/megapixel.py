@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
@@ -31,7 +30,7 @@ from ..data import make_blobs
 from ..models import UNet
 from ..train.engine import create_train_state
 from ..train.objective import LossConfig
-from ..utils.device import set_precision
+from ..utils.device import card_line, set_precision
 from .mesh import initialize_distributed, make_mesh
 from .sharding import make_sharded_train_step, shard_train_state
 
@@ -41,15 +40,6 @@ __all__ = ["run", "main"]
 # JAX package's demo
 STAGE2 = LossConfig(pde_weight=1e-4, phase_field_weight=1e-4, diffusion_coeff=5.0)
 STEPS = 3
-
-
-def card_line() -> str:
-    """``name, power.limit`` of the card, as ``nvidia-smi`` prints them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def run(h: int = 1024, base_channels: int = 64) -> dict:

@@ -1,0 +1,266 @@
+"""Inference / serving path.
+
+Counterpart of ``physics_informed_image_segmentation_tpu/serve.py``: a
+:class:`Predictor` around a fixed-batch forward pass of a trained U-Net,
+with automatic padding, test-time augmentation over the 8 dihedral
+symmetries, device-resident and tiled inference, plus the helpers of the
+``predict`` CLI (``python -m physics_informed_image_segmentation_tpu_torch.predict``).
+
+The public layout is the JAX package's: images in and out are
+``(N, H, W[, 1])``, outputs float32 ``(N, H, W, 1)``; NCHW is internal.
+
+Precision.  ``"bf16"`` keeps a bfloat16 copy of the weights (made once,
+when ``params`` is assigned), casts the input down to bfloat16 and runs
+every layer in it; the output convolution's result is cast to float32
+before the sigmoid.  Those are the places where the JAX model rounds
+(``x.astype(dtype)`` on entry, ``.astype(float32)`` after ``out_conv``).
+It is not ``torch.autocast``, which would cast the float32 weights again
+on every call.
+
+Checkpoints are ``.pth`` state dicts with the reference keys: the files
+:func:`..train.checkpoint.save_params` writes, or the reference
+implementation's own.  A Flax ``.msgpack`` file cannot be read here.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .models import UNet
+from .train.checkpoint import load_params
+from .utils.device import resolve_device, set_precision
+
+__all__ = ["Predictor", "load_image_for_inference"]
+
+
+def _d4_apply(x: torch.Tensor, code: int) -> torch.Tensor:
+    """Apply dihedral symmetry ``code`` (0-3 rot90, 4-7 rot90+flip) to NHWC."""
+    k, flip = code % 4, code >= 4
+    xt = torch.rot90(x, k, dims=(1, 2))
+    return xt.flip(2) if flip else xt
+
+
+def _d4_invert(x: torch.Tensor, code: int) -> torch.Tensor:
+    k, flip = code % 4, code >= 4
+    if flip:
+        x = x.flip(2)
+    return torch.rot90(x, -k, dims=(1, 2))
+
+
+def load_image_for_inference(path, image_size=(128, 128)) -> np.ndarray:
+    """Decode one grayscale image exactly like the training pipeline
+    (bilinear resize, then per-image min-max normalisation)."""
+    from PIL import Image
+
+    th, tw = image_size
+    img = Image.open(path).convert("L").resize((tw, th), resample=Image.BILINEAR)
+    arr = np.array(img, dtype=np.float32)
+    arr = (arr - arr.min()) / (arr.max() - arr.min() + 1e-8)
+    return arr[..., None]
+
+
+class Predictor:
+    """Batched inference on a trained checkpoint.
+
+    >>> p = Predictor("models/unet_pde_regularized.pth")
+    >>> probs = p.predict(images)            # (N, H, W, 1) in (0, 1)
+    >>> masks = p.predict(images, threshold=0.5)
+
+    Inputs are padded to ``batch_size``, so every forward pass has one
+    shape.  It runs on the GPU and raises without one, unless given
+    ``device="cpu"``.  A ``model`` passed in is moved to that device and
+    to the compute type.
+    """
+
+    def __init__(
+        self,
+        checkpoint_path,
+        model: Optional[UNet] = None,
+        batch_size: int = 8,
+        image_size=(128, 128),
+        precision: str = "bf16",
+        base_channels: int = 64,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.dtype = torch.bfloat16 if set_precision(precision) == "bf16" else torch.float32
+        if model is None:
+            model = UNet(in_channels=1, out_channels=1, base_channels=base_channels)
+        self.model = model.to(device=self.device, dtype=self.dtype).eval()
+        self.batch_size = batch_size
+        self.image_size = tuple(image_size)
+
+        path = Path(checkpoint_path)
+        if path.suffix == ".msgpack":
+            raise ValueError(
+                f"{path} is a Flax msgpack checkpoint, which PyTorch cannot read; convert it "
+                "with physics_informed_image_segmentation_tpu/utils/torch_interop.py::"
+                "export_torch_state_dict of the JAX package and torch.save the result as a .pth"
+            )
+        self.params = load_params(path)
+
+    @property
+    def params(self):
+        """The weights as assigned: a ``state_dict`` with the reference keys."""
+        return self._params
+
+    @params.setter
+    def params(self, value):
+        # the cast to the compute type happens once, here, and not on
+        # every call; assigning new weights takes effect on the next call
+        self._params = value
+        self.model.load_state_dict(value)
+
+    @torch.no_grad()
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) float32 on the device → (B, H, W, C_out) float32."""
+        out = self.model(x.permute(0, 3, 1, 2).to(self.dtype))
+        return out.permute(0, 2, 3, 1)
+
+    def _forward_tta(self, x: torch.Tensor) -> torch.Tensor:
+        # all 8 dihedral symmetries as one 8B-image batch, inverted and
+        # averaged in float32 in the output's shape
+        b = x.shape[0]
+        pred = self._forward(torch.cat([_d4_apply(x, c) for c in range(8)]))
+        acc = _d4_invert(pred[:b], 0)
+        for c in range(1, 8):
+            acc = acc + _d4_invert(pred[c * b:(c + 1) * b], c)
+        return acc / 8.0
+
+    def predict_device(self, images, tta: bool = False) -> torch.Tensor:
+        """Device-to-device batched inference with no host round trip and
+        no synchronisation, for pipelines whose images already live on
+        the device.
+
+        ``images``: (N, H, W[, 1]) tensor (or array) with N a multiple of
+        ``batch_size``; returns an (N, H, W, 1) float32 probability tensor
+        on the device.
+
+        ``tta=True`` runs all 8 dihedral symmetries of a chunk as one
+        ``8*batch_size``-image batch: about 8x the peak activation memory
+        of the plain path.
+        """
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        if x.dim() == 3:
+            x = x[..., None]
+        if x.dim() != 4:
+            raise ValueError(f"expected (N, H, W[, 1]) images, got {tuple(x.shape)}")
+        if tta and x.shape[1] != x.shape[2]:
+            raise ValueError("tta requires square images")
+        n = x.shape[0]
+        if n % self.batch_size:
+            raise ValueError(
+                f"N={n} must be a multiple of batch_size={self.batch_size} "
+                "(pad, or use predict() which pads automatically)"
+            )
+        forward = self._forward_tta if tta else self._forward
+        return torch.cat([forward(x[i:i + self.batch_size])
+                          for i in range(0, n, self.batch_size)])
+
+    def _run_chunks(self, x: np.ndarray, forward) -> np.ndarray:
+        """Launch every padded chunk before fetching any result: the one
+        copy to the host at the end is the only synchronisation."""
+        n = x.shape[0]
+        outs = []
+        for start in range(0, n, self.batch_size):
+            chunk = x[start:start + self.batch_size]
+            pad = self.batch_size - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
+            outs.append(forward(torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)))
+        # only the last chunk is padded, so the pad is the tail
+        return torch.cat(outs)[:n].cpu().numpy()
+
+    def predict(
+        self,
+        images: np.ndarray,
+        threshold: Optional[float] = None,
+        tta: bool = False,
+    ) -> np.ndarray:
+        """(N, H, W[, 1]) images → probability maps (or binary masks when
+        ``threshold`` is given), shape (N, H, W, 1) float32.
+
+        ``tta=True`` averages predictions over the 8 dihedral (flip/
+        rot90) symmetries, exact for segmentation (no interpolation), at
+        8x the compute.  Requires square inputs.  The 8 symmetries run as
+        one ``8*batch_size``-image batch, so peak activation memory is
+        about 8x the plain path's.
+        """
+        x = np.asarray(images, np.float32)
+        if x.ndim == 3:
+            x = x[..., None]
+        if tta and x.shape[1] != x.shape[2]:
+            raise ValueError("tta requires square images")
+        probs = self._run_chunks(x, self._forward_tta if tta else self._forward)
+        if threshold is None:
+            return probs
+        return (probs > threshold).astype(np.float32)
+
+    def predict_tiled(
+        self,
+        image: np.ndarray,
+        tile: Optional[int] = None,
+        overlap: int = 32,
+        threshold: Optional[float] = None,
+    ) -> np.ndarray:
+        """Sliding-window inference for images larger than the trained
+        field size: overlapping tiles, cosine-blended seams.
+
+        ``image``: (H, W) or (H, W, 1) float32 in [0, 1].  Returns a
+        full-resolution probability map (or binary mask) of shape
+        (H, W, 1).
+        """
+        img = np.asarray(image, np.float32)
+        if img.ndim == 3:
+            img = img[..., 0]
+        th = tile or self.image_size[0]
+        if overlap >= th:
+            raise ValueError("overlap must be smaller than the tile size")
+        H, W = img.shape
+        stride = th - overlap
+
+        # 1D cosine ramp window -> separable 2D blending weights
+        ramp = 0.5 - 0.5 * np.cos(np.linspace(0, np.pi, overlap, dtype=np.float32))
+        win1d = np.ones(th, np.float32)
+        win1d[:overlap] = ramp
+        win1d[-overlap:] = ramp[::-1]
+        # floor the window: image borders are covered by a single tile
+        # whose ramp edge must still contribute full weight after the
+        # acc/wsum normalisation (w/w = 1 for any w > 0)
+        win = np.maximum(np.outer(win1d, win1d), 1e-3)
+
+        ys = list(range(0, max(H - th, 0) + 1, stride))
+        xs = list(range(0, max(W - th, 0) + 1, stride))
+        # the last tile sits flush with the border
+        if ys[-1] != H - th and H > th:
+            ys.append(H - th)
+        if xs[-1] != W - th and W > th:
+            xs.append(W - th)
+
+        tiles, coords = [], []
+        for y0 in ys:
+            for x0 in xs:
+                patch = np.zeros((th, th), np.float32)
+                patch_src = img[y0:y0 + th, x0:x0 + th]
+                patch[:patch_src.shape[0], :patch_src.shape[1]] = patch_src
+                tiles.append(patch[..., None])
+                coords.append((y0, x0, patch_src.shape[0], patch_src.shape[1]))
+
+        preds = self.predict(np.stack(tiles))
+        acc = np.zeros((H, W), np.float32)
+        wsum = np.zeros((H, W), np.float32)
+        for pred, (y0, x0, hh, ww) in zip(preds, coords):
+            acc[y0:y0 + hh, x0:x0 + ww] += pred[:hh, :ww, 0] * win[:hh, :ww]
+            wsum[y0:y0 + hh, x0:x0 + ww] += win[:hh, :ww]
+        probs = (acc / np.maximum(wsum, 1e-8))[..., None]
+        if threshold is None:
+            return probs
+        return (probs > threshold).astype(np.float32)
+
+    def predict_files(self, paths, threshold: Optional[float] = None) -> np.ndarray:
+        images = np.stack([load_image_for_inference(p, self.image_size) for p in paths])
+        return self.predict(images, threshold=threshold)

@@ -7,9 +7,11 @@ machine without a usable card raises.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
-__all__ = ["resolve_device", "set_precision", "autocast"]
+__all__ = ["resolve_device", "set_precision", "autocast", "card_line"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,3 +50,12 @@ def autocast(device: torch.device, precision: str):
     return torch.autocast(
         device_type=device.type, dtype=torch.bfloat16, enabled=precision == "bf16"
     )
+
+
+def card_line() -> str:
+    """``name, power.limit`` of the first card, as ``nvidia-smi`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]

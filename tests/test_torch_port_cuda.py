@@ -1,7 +1,8 @@
 """PyTorch port on the card: the fused physics-sums CUDA kernel (K1), the
-fused AdamW kernel (K2) and the halo-padded physics kernel (K3) against
-their plain versions, and the Stage II objective, the train step and the
-halo physics loss through them.
+fused AdamW kernel (K2), the halo-padded physics kernel (K3) and the 3x3
+convolution kernels (K4) against their plain versions, and the Stage II
+objective, the train step, the halo physics loss and the Predictor on the
+card.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these tests skip on a
 machine without a GPU.  Run them on the card with
@@ -11,12 +12,17 @@ machine without a GPU.  Run them on the card with
 Tolerances: the kernel and the plain version sum in float32 in different
 orders (no atomics), so sums agree to rtol 1e-5 and gradients to
 atol 1e-6·max|g| + rtol 1e-5 (K1 and K3 alike).  K2 rounds every
-operation as its plain version does, so the two must be bit-equal.
+operation as its plain version does, so the two must be bit-equal.  K4 in
+float32: forward rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol 1e-4
+(the bars of ``tests/test_pallas_conv.py``); in bf16 both accumulate in
+float32 and round once, so they are within one bf16 rounding (rtol 2^-7,
+atol 1e-2).
 """
 
 import pytest
 import torch
 
+from physics_informed_image_segmentation_tpu_torch.ops import conv_kernel as K4
 from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
 from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
 from physics_informed_image_segmentation_tpu_torch.train import adamw_kernel as K2
@@ -249,3 +255,116 @@ def test_halo_physics_loss_goes_through_the_padded_kernel(cuda):
         assert abs(float(pf.detach()) - float(ref_pf)) <= 1e-5 * abs(float(ref_pf))
     finally:
         dist.destroy_process_group()
+
+
+def _k4_case(shape, dtype, device, seed=8):
+    b, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, h, w, cin), generator=g).to(dtype)
+    wt = (torch.randn((3, 3, cin, cout), generator=g) * 0.1).to(dtype)
+    cot = (torch.randn((b, h, w, cout), generator=g) * 0.1).to(dtype)
+    return x.to(device), wt.to(device), cot.to(device)
+
+
+def _k4_grads(fn, x, wt, cot, paired):
+    xx, ww = x.clone().requires_grad_(True), wt.clone().requires_grad_(True)
+    out = fn(xx, ww, paired)
+    return (out.detach(), *torch.autograd.grad(out, (xx, ww), cot))
+
+
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 128, 128, 64, 64), torch.bfloat16), ((2, 16, 16, 8, 8), torch.float32),
+    ((1, 8, 32, 4, 12), torch.float32), ((2, 44, 64, 16, 24), torch.float32),
+    ((2, 44, 64, 16, 24), torch.bfloat16), ((1, 16, 32, 72, 136), torch.float32),
+    ((1, 20, 24, 8, 8), torch.float32), ((2, 16, 16, 8, 8), torch.bfloat16),
+    ((1, 20, 24, 80, 136), torch.bfloat16),
+])
+def test_conv_kernel_matches_plain_version(cuda, shape, dtype, paired):
+    x, wt, cot = _k4_case(shape, dtype, cuda)
+    # the Function takes any W; the public function keeps the JAX contract
+    kernel = _k4_grads(K4.Conv3x3Same.apply, x, wt, cot, paired)
+    plain = _k4_grads(K4.conv3x3_same_reference, x, wt, cot, paired)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        bars = [(1e-5, 1e-5), (1e-4, 1e-4), (1e-4, 1e-4)]
+    else:
+        bars = [(2.0 ** -7, 1e-2)] * 3
+    for k, p, (rtol, atol) in zip(kernel, plain, bars):
+        assert k.dtype == dtype and k.shape == p.shape
+        assert torch.all((k.float() - p.float()).abs() <= atol + rtol * p.float().abs())
+
+
+def test_conv_on_the_card_runs_its_kernels_and_nothing_else(cuda, monkeypatch):
+    """``conv3x3_same`` on CUDA tensors moves the launch counters and never
+    reaches the plain version, ``F.conv2d``, ``matmul`` or ``einsum``."""
+    x, wt, cot = _k4_case((2, 16, 16, 8, 8), torch.float32, cuda)
+    ones = K4.conv3x3_same(torch.ones((1, 8, 16, 4), device=cuda),
+                           torch.ones((3, 3, 4, 4), device=cuda))
+    assert [float(ones[0, 4, 8, 0]), float(ones[0, 0, 8, 0]), float(ones[0, 0, 0, 0])] == [36, 24, 16]
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached something other than the kernels")
+
+    monkeypatch.setattr(K4, "conv3x3_same_reference", forbidden)
+    monkeypatch.setattr(torch.nn.functional, "conv2d", forbidden)
+    monkeypatch.setattr(torch, "matmul", forbidden)
+    monkeypatch.setattr(torch, "einsum", forbidden)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", forbidden)
+    K4.reset_launch_counts()
+    first = _k4_grads(K4.conv3x3_same, x, wt, cot, False)
+    assert K4.launch_counts == {"conv3x3_fwd": 2, "conv3x3_fwd_paired": 0, "conv3x3_dw": 1}
+    _k4_grads(K4.conv3x3_same, x, wt, cot, True)
+    assert K4.launch_counts == {"conv3x3_fwd": 2, "conv3x3_fwd_paired": 2, "conv3x3_dw": 2}
+    again = _k4_grads(K4.conv3x3_same, x, wt, cot, False)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)  # no atomics: a run repeats bit for bit
+
+
+def test_conv_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, wt, _ = _k4_case((1, 8, 8, 8, 8), torch.float32, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K4.conv3x3_same(x.double(), wt.double())
+    with pytest.raises(ValueError, match="is on"):
+        K4._launch_fwd(x, wt.reshape(9, 8, 8).cpu(), False)
+    with pytest.raises(ValueError, match="power-of-two W"):
+        K4.conv3x3_same(x[:, :, :6], wt)
+    with pytest.raises(ValueError, match=r"\(9, 8, Cout\)"):
+        K4._launch_fwd(x, torch.zeros((9, 4, 8), device=cuda), False)
+    with pytest.raises(ValueError, match="shared memory"):
+        K4.conv3x3_same(torch.zeros((1, 8, 8, 256), device=cuda),
+                        torch.zeros((3, 3, 256, 8), device=cuda))
+    # the most input channels that fit: float32 on the CUDA cores, bf16 on
+    # the tensor cores, in the row-major and the paired order
+    for cin, paired, dtype in ((237, False, torch.float32), (188, True, torch.float32),
+                               (432, False, torch.bfloat16), (336, True, torch.bfloat16)):
+        xx, ww, cc = _k4_case((1, 8, 8, cin, 8), dtype, cuda)
+        k = _k4_grads(K4.conv3x3_same, xx, ww, cc, paired)
+        p = _k4_grads(K4.conv3x3_same_reference, xx, ww, cc, paired)
+        rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -7, 1e-2)
+        assert torch.all((k[0].float() - p[0].float()).abs() <= atol + rtol * p[0].float().abs())
+        with pytest.raises(ValueError, match="shared memory"):
+            K4.conv3x3_same(torch.zeros((1, 8, 8, cin + 16), dtype=dtype, device=cuda),
+                            torch.zeros((3, 3, cin + 16, 8), dtype=dtype, device=cuda), paired)
+
+
+def test_predictor_on_the_card(cuda, tmp_path):
+    from physics_informed_image_segmentation_tpu_torch.data import make_blobs
+    from physics_informed_image_segmentation_tpu_torch.models import UNet
+    from physics_informed_image_segmentation_tpu_torch.serve import Predictor
+    from physics_informed_image_segmentation_tpu_torch.train.checkpoint import save_params
+
+    model = UNet(base_channels=8, generator=torch.Generator().manual_seed(0))
+    save_params(model, tmp_path / "m.pth")
+    p = Predictor(tmp_path / "m.pth", batch_size=4, image_size=(64, 64), precision="f32",
+                  base_channels=8)
+    assert p.device.type == "cuda"
+    images = make_blobs(6, 64, 64, seed=0)[0]
+    probs = p.predict(images)
+    with torch.no_grad():
+        ref = model.to(cuda).eval()(torch.as_tensor(images, device=cuda).permute(0, 3, 1, 2))
+    # float32 without TF32 on both sides, other batch sizes
+    assert abs(probs - ref.permute(0, 2, 3, 1).cpu().numpy()).max() <= 1e-5
+    dev = p.predict_device(torch.as_tensor(images[:4], device=cuda))
+    assert dev.is_cuda and abs(dev.cpu().numpy() - probs[:4]).max() <= 1e-5
