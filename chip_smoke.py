@@ -41,7 +41,9 @@ final result line):
    then K4 (the 3x3 convolution: forward in both tap orders, dx and dW)
    against its plain version at the probe's shape (8,128,128,64) in bf16,
    the JAX tests' shapes, several tiles with ragged edges, two channel
-   chunks and an all-ones input, and in float32 against ``F.conv2d``;
+   chunks and all-ones inputs, and in float32 against ``F.conv2d``; every
+   case prints the kernel set (wgmma, wmma or CUDA cores) that its forward,
+   dx and dW took and is held to the set its operands should take;
 9. the data×space path at world 1 (NCCL through a file store): the
    megapixel train step (``parallel/megapixel.py``: 1024x1024, base 64,
    bf16, 3 steps) with K3's launch counts and its peak memory; one f32
@@ -53,7 +55,8 @@ final result line):
 10. time the kernels, their plain versions, the library's calls (fused
    AdamW, ``F.conv2d`` and its weight gradient) and
    steady-state Stage II training with "adamw" and "pallas_adamw", with
-   CUDA events;
+   CUDA events; K4's kernels and its library calls also by device time
+   per launch (``torch.profiler``), which leaves the wrapper out;
 11. print one JSON line describing every kernel, then the result line.
 
 Needs one card, a CUDA toolkit (``nvcc``) and this repository around it.
@@ -778,22 +781,47 @@ def check_k4() -> dict:
     from physics_informed_image_segmentation_tpu_torch.ops import conv_kernel as K4
 
     f32, bf16 = torch.float32, torch.bfloat16
+    cores, wmma, wgmma = "cuda-cores", "wmma", "wgmma"
+    # label, shape, type, scale of w and cot, the kernel sets that the forward,
+    # dx (a forward with Cin and Cout exchanged) and dW must take
     cases = [
-        ("probe shape (8,128,128,64->64) bf16", PROBE_SHAPE, bf16, 0.05),
-        ("JAX test shape (2,16,16,8->8) f32", (2, 16, 16, 8, 8), f32, 0.1),
-        ("JAX test shape (1,8,32,4->12) f32", (1, 8, 32, 4, 12), f32, 0.1),
-        ("several tiles, ragged rows (2,44,64,16->24) f32", (2, 44, 64, 16, 24), f32, 0.1),
-        ("several tiles (2,44,64,16->24) bf16", (2, 44, 64, 16, 24), bf16, 0.1),
-        ("two channel chunks (1,16,32,72->136) f32", (1, 16, 32, 72, 136), f32, 0.1),
-        ("any W, ragged columns (1,20,24,8->8) f32", (1, 20, 24, 8, 8), f32, 0.1),
-        ("CUDA cores in bf16, Cin % 16 != 0 (2,16,16,8->8) bf16", (2, 16, 16, 8, 8), bf16, 0.1),
-        ("tensor cores, two chunks, ragged (1,20,24,80->136) bf16", (1, 20, 24, 80, 136), bf16,
-         0.1),
+        ("probe shape (8,128,128,64->64) bf16", PROBE_SHAPE, bf16, 0.05, (wgmma,) * 3),
+        ("JAX test shape (2,16,16,8->8) f32", (2, 16, 16, 8, 8), f32, 0.1, (cores,) * 3),
+        ("JAX test shape (1,8,32,4->12) f32", (1, 8, 32, 4, 12), f32, 0.1, (cores,) * 3),
+        ("several tiles, ragged rows (2,44,64,16->24) f32", (2, 44, 64, 16, 24), f32, 0.1,
+         (cores,) * 3),
+        ("several tiles (2,44,64,16->24) bf16", (2, 44, 64, 16, 24), bf16, 0.1,
+         (wmma, cores, wmma)),
+        ("two channel chunks (1,16,32,72->136) f32", (1, 16, 32, 72, 136), f32, 0.1, (cores,) * 3),
+        ("any W, ragged columns (1,20,24,8->8) f32", (1, 20, 24, 8, 8), f32, 0.1, (cores,) * 3),
+        ("CUDA cores in bf16, Cin % 16 != 0 (2,16,16,8->8) bf16", (2, 16, 16, 8, 8), bf16, 0.1,
+         (cores,) * 3),
+        ("wmma, two chunks, ragged (1,20,24,80->136) bf16", (1, 20, 24, 80, 136), bf16, 0.1,
+         (wmma, cores, wmma)),
+        ("wmma (2,16,16,16->24) bf16", (2, 16, 16, 16, 24), bf16, 0.1, (wmma, cores, wmma)),
+        ("one tile (1,8,16,64->64) bf16", (1, 8, 16, 64, 64), bf16, 0.1, (wgmma,) * 3),
+        ("an image smaller than a tile (2,5,8,64->64) bf16", (2, 5, 8, 64, 64), bf16, 0.1,
+         (wgmma,) * 3),
+        ("ragged H and W, fewer tiles than SMs (2,44,72,64->64) bf16", (2, 44, 72, 64, 64), bf16,
+         0.1, (wgmma,) * 3),
+        ("ragged, more tiles than SMs (3,72,136,64->64) bf16", (3, 72, 136, 64, 64), bf16, 0.05,
+         (wgmma,) * 3),
+        ("two input chunks (1,20,24,128->64) bf16", (1, 20, 24, 128, 64), bf16, 0.1,
+         (wgmma,) * 3),
+        ("two output chunks (1,16,32,64->128) bf16", (1, 16, 32, 64, 128), bf16, 0.1,
+         (wgmma,) * 3),
+        ("dW on wgmma, forward on wmma (1,16,16,192->64) bf16", (1, 16, 16, 192, 64), bf16, 0.05,
+         (wmma, wgmma, wgmma)),
     ]
     errors = {}
-    for i, (label, shape, dtype, scale) in enumerate(cases):
+    for i, (label, shape, dtype, scale, expected_sets) in enumerate(cases):
         x, wt, cot = k4_case(shape, dtype, seed=70 + i, scale=scale)
         fwd_tol, grad_tol = (K4_F32_FWD, K4_F32_GRAD) if dtype == f32 else (K4_BF16, K4_BF16)
+        w9 = wt.reshape(9, shape[3], shape[4])
+        sets = (K4.kernel_set(x, w9), K4.kernel_set(cot, w9.transpose(1, 2).contiguous()),
+                K4.kernel_set(x, cot, dw=True))
+        print(f"K4 {label}: kernel sets forward {sets[0]}, dx {sets[1]}, dW {sets[2]}")
+        check(sets == expected_sets, f"K4 {label}: kernel sets {sets}, expected {expected_sets}")
         for paired in (False, True):
             # Conv3x3Same takes any W; the public function keeps the JAX contract
             ko, kdx, kdw = k4_grads(K4.Conv3x3Same.apply, x, wt, cot, paired)
@@ -821,6 +849,13 @@ def check_k4() -> dict:
                     tol = (K4_CUDNN_RTOL, K4_CUDNN_ATOL_REL * float(ref.abs().max()))
                     check(close(a, ref, tol), f"K4 {label}, paired {paired}: {name} differs from "
                           f"cuDNN's by {float((a - ref).abs().max()):.3e}, beyond {tol}")
+            if sets[1] == wgmma:
+                # dx read the weights transposed in the kernel: the same products in the
+                # same order as the forward kernel on weights laid out by PyTorch
+                laid_out = w9.flip(0).transpose(1, 2).contiguous()
+                check(torch.equal(K4._launch_fwd(cot, w9, paired, transposed=True),
+                                  K4._launch_fwd(cot, laid_out, paired)),
+                      f"K4 {label}, paired {paired}: dx differs between the two weight layouts")
             if i == 0:
                 errors["conv3x3_fwd_paired" if paired else "conv3x3_fwd"] = max(errs[0], errs[1])
                 errors["conv3x3_dw"] = max(errors.get("conv3x3_dw", 0.0), errs[2])
@@ -832,6 +867,16 @@ def check_k4() -> dict:
                float(ones[0, 7, 15, 2])]
         print(f"K4 all ones (1,8,16,4->4), paired {paired}: interior, edge, corners {got}")
         check(got == [36.0, 24.0, 16.0, 16.0], f"K4 zero padding: {got} != [36, 24, 16, 16]")
+        # the wgmma kernels, two ragged tiles each way: 64 channels a tap, all exact in bf16
+        ones = K4.Conv3x3Same.apply(torch.ones((1, 9, 17, 64), device="cuda", dtype=bf16),
+                                    torch.ones((3, 3, 64, 64), device="cuda", dtype=bf16), paired)
+        got = [float(ones[0, 4, 8, 0]), float(ones[0, 7, 15, 63]), float(ones[0, 0, 8, 1]),
+               float(ones[0, 8, 9, 5]), float(ones[0, 4, 16, 7]), float(ones[0, 0, 0, 3]),
+               float(ones[0, 8, 16, 2])]
+        print(f"K4 all ones (1,9,17,64->64) bf16, paired {paired}: interior, across tiles, edges, "
+              f"corners {got}")
+        check(got == [576.0, 576.0, 384.0, 384.0, 384.0, 256.0, 256.0],
+              f"K4 zero padding on wgmma: {got} != [576, 576, 384, 384, 384, 256, 256]")
     # no atomics: the same inputs give the same bits
     x, wt, cot = k4_case(PROBE_SHAPE, bf16, seed=70, scale=0.05)
     check(torch.equal(K4.conv3x3_same(x, wt), K4.conv3x3_same(x, wt)),
@@ -884,10 +929,32 @@ def k4_bound_ms(shape, itemsize: int, dw: bool) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_us_per_call(fn, reps: int = 20) -> dict:
+    """Device time of one call of ``fn``, from ``torch.profiler`` over
+    ``reps`` calls: ``{"total": µs, "kernels": {name: µs}}``.  It counts
+    what ran on the card and leaves out the wrapper's time on the host.
+    Where the profiler cannot trace the card, ``total`` is None: not
+    measured."""
+    from physics_informed_image_segmentation_tpu_torch.utils.profile_step import _device_time
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {e.key: _device_time(e) / reps for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_time(e) > 0}
+    return {"total": sum(kernels.values()) if kernels else None, "kernels": kernels}
+
+
 def time_k4() -> dict:
     """K4 at the probe's shape (bf16): each kernel, its plain version and
     the library's call (``F.conv2d`` on channels-last operands;
-    ``torch.nn.grad.conv2d_weight`` for dW), median ms of 30 calls."""
+    ``torch.nn.grad.conv2d_weight`` for dW), median ms of 30 calls; and the
+    device time per call of the kernels and the library's calls, under
+    ``"device_us"``."""
     from physics_informed_image_segmentation_tpu_torch.ops import conv_kernel as K4
 
     x, wt, cot = k4_case(PROBE_SHAPE, torch.bfloat16, seed=80, scale=0.05)
@@ -915,7 +982,24 @@ def time_k4() -> dict:
     for name, row in out.items():
         print(f"K4 {name} at (8,128,128,64->64) bf16: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
               f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.5f} by {row['bound_by']})")
-    return out
+    with torch.no_grad():
+        device = {
+            "conv3x3_fwd": device_us_per_call(lambda: K4._launch_fwd(x, w9, False)),
+            "conv3x3_fwd_paired": device_us_per_call(lambda: K4._launch_fwd(x, w9, True)),
+            "conv3x3_fwd as dx": device_us_per_call(lambda: K4._launch_dx(cot, w9, False)),
+            "conv3x3_dw": device_us_per_call(lambda: K4._launch_dw(x, cot)),
+            "F.conv2d": device_us_per_call(lambda: F.conv2d(xn, wo, padding=1)),
+            "conv2d_weight": device_us_per_call(
+                lambda: torch.nn.grad.conv2d_weight(xn, wo.shape, gn, padding=1)),
+        }
+    for name, row in device.items():
+        if row["total"] is None:
+            print(f"K4 device time per call, {name}: not measured (the profiler traced no kernel)")
+            continue
+        parts = ", ".join(f"{k[:60]} {v:.2f}" for k, v in sorted(row["kernels"].items(),
+                                                                key=lambda kv: -kv[1]))
+        print(f"K4 device time per call, {name}: {row['total']:.2f} us ({parts})")
+    return {"rows": out, "device_us": device}
 
 
 def drive_halo_path() -> dict:
@@ -1303,7 +1387,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/conv3x3.cu",
             "replaces": f"physics_informed_image_segmentation_tpu/ops/pallas_conv.py:{line}",
-            "launches": probe["counts"][name], "max_abs_err": errors[name], **k4_times[name]})
+            "launches": probe["counts"][name], "max_abs_err": errors[name],
+            **k4_times["rows"][name]})
     mres = parallel["halo"]["res"]
     print(json.dumps({"megapixel_step": {
         "image": mres["image"], "base_channels": 64, "precision": "bf16", "batch": 1,
@@ -1312,6 +1397,8 @@ def main() -> int:
         "card": smi}))
     print(json.dumps({"stage2_train_img_per_s": rates, "card": smi}))
     print(json.dumps({"serving": serving, "conv_probe": probe["res"], "card": smi}))
+    print(json.dumps({"k4_device_us_per_call": k4_times["device_us"],
+                      "shape": "(8,128,128,64->64) bf16", "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

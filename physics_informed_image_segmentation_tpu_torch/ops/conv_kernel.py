@@ -25,11 +25,22 @@ Dispatch is by the device of the tensors, with no fallback:
 
 The kernels take float32 or bfloat16, contiguous tensors, any H and W, any
 Cout, and any Cin up to what the forward's shared memory holds (the
-wrapper raises beyond).  bfloat16 tensors whose Cin is a multiple of 16
-run on the tensor cores (Cin <= 432 in row-major order, <= 336 paired);
-float32, and bfloat16 with another Cin, multiply on the CUDA cores
-(Cin <= 237, <= 188 paired).  The public function keeps the JAX package's
-contract and raises for a W that is not a power of two.
+wrapper raises beyond).  The library picks one of three kernel sets by what
+the operands are (:func:`kernel_set` says which), and nothing lets a call
+fall from one set to another:
+
+* ``"wgmma"``: bfloat16, 16-byte aligned, Cout a multiple of 64 and Cin 64
+  or 128 (forward and dx) or a multiple of 64 (dW).  Persistent blocks,
+  TMA loads into a ring of tiles, ``wgmma``; the forward keeps the nine
+  taps' weights in shared memory, dW the nine taps' sums in registers; dx
+  reads the weights transposed in the kernel;
+* ``"wmma"``: the other bfloat16 operands whose Cin is a multiple of 16
+  (Cin <= 432 in row-major order, <= 336 paired);
+* ``"cuda-cores"``: float32, and bfloat16 with another Cin (Cin <= 237,
+  <= 188 paired).
+
+The public function keeps the JAX package's contract and raises for a W
+that is not a power of two.
 
 ``launch_counts`` counts kernel launches: ``conv3x3_fwd`` and
 ``conv3x3_fwd_paired`` once per forward-kernel launch (outputs and input
@@ -39,6 +50,7 @@ gradients alike), ``conv3x3_dw`` once per weight gradient;
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -49,6 +61,7 @@ __all__ = [
     "Conv3x3Same",
     "conv3x3_same",
     "conv3x3_same_reference",
+    "kernel_set",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -60,6 +73,8 @@ _PAIRS = ((0, 8), (1, 7), (2, 6), (3, 5))
 _CENTER = 4
 # shared memory a block can use on sm_90
 _MAX_SHARED_BYTES = 232448
+# the library's numbers for its kernel sets
+_KERNEL_SETS = ("cuda-cores", "wmma", "wgmma")
 
 
 def reset_launch_counts() -> None:
@@ -73,17 +88,56 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("conv3x3")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.conv3x3_fwd_shared_bytes.argtypes = [p, i, i, i]
+    lib.conv3x3_fwd_kernel_set.argtypes = [i, i, i, i]
+    lib.conv3x3_fwd_kernel_set.restype = i
+    lib.conv3x3_dw_kernel_set.argtypes = [i, i, i, i]
+    lib.conv3x3_dw_kernel_set.restype = i
+    lib.conv3x3_fwd_shared_bytes.argtypes = [i, i, i, i, i]
     lib.conv3x3_fwd_shared_bytes.restype = i
-    lib.conv3x3_dw_blocks.argtypes = [p, p, i, i, i, i, i]
+    lib.conv3x3_dw_blocks.argtypes = [i, i, i, i, i, i, i]
     lib.conv3x3_dw_blocks.restype = i
-    lib.conv3x3_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.conv3x3_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.conv3x3_fwd.restype = i
-    lib.conv3x3_dw_partials.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    lib.conv3x3_dw_partials.restype = i
-    lib.conv3x3_dw_finish.argtypes = [p, p, i, i, i, p]
-    lib.conv3x3_dw_finish.restype = i
+    lib.conv3x3_dw.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.conv3x3_dw.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_shared_bytes(cin: int, cout: int, paired: bool, is_bf16: int, aligned: int) -> int:
+    """The forward's shared memory in the set that will run.  The answer
+    depends on these arguments only, so the library is asked once for each
+    and not once a call."""
+    return _library().conv3x3_fwd_shared_bytes(cin, cout, int(paired), is_bf16, aligned)
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_blocks(b: int, h: int, w: int, cin: int, cout: int, is_bf16: int, aligned: int,
+               device_index: int) -> int:
+    """Partials that dW writes for these operands on this device (the wgmma
+    set has one block an SM); asked once for each, as above."""
+    with torch.cuda.device(device_index):
+        return _library().conv3x3_dw_blocks(b, h, w, cin, cout, is_bf16, aligned)
+
+
+def _aligned(*tensors: torch.Tensor) -> int:
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_kernel_set(cin: int, cout: int, is_bf16: int, aligned: int) -> str:
+    return _KERNEL_SETS[_library().conv3x3_fwd_kernel_set(cin, cout, is_bf16, aligned)]
+
+
+def kernel_set(x: torch.Tensor, other: torch.Tensor, dw: bool = False) -> str:
+    """The kernel set that CUDA operands take: ``"wgmma"``, ``"wmma"`` or
+    ``"cuda-cores"``.  The forward's operands are ``x`` (B, H, W, Cin) and
+    ``w9`` (9, Cin, Cout); dW's (``dw=True``) are ``x`` and ``g``
+    (B, H, W, Cout)."""
+    key = (x.shape[3], other.shape[-1], int(x.dtype == torch.bfloat16), _aligned(x, other))
+    if dw:
+        return _KERNEL_SETS[_library().conv3x3_dw_kernel_set(*key)]
+    return _fwd_kernel_set(*key)
 
 
 def _check_pair(x: torch.Tensor, other: torch.Tensor, x_name: str, other_name: str) -> None:
@@ -109,32 +163,57 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_fwd(x: torch.Tensor, w9: torch.Tensor, paired: bool) -> torch.Tensor:
-    """``x`` (B, H, W, Cin) and ``w9`` (9, Cin, Cout) of one type → (B, H, W, Cout)."""
+def _on_device(device: torch.device):
+    """The runtime launches on the current device, which must own the
+    stream: a context that makes ``device`` current unless it is."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _launch_fwd(x: torch.Tensor, w9: torch.Tensor, paired: bool,
+                transposed: bool = False) -> torch.Tensor:
+    """``x`` (B, H, W, Cin) and ``w9`` (9, Cin, Cout) of one type → (B, H, W, Cout).
+
+    ``transposed`` (the wgmma set only, see :func:`_launch_dx`): ``w9`` is
+    (9, Cout, Cin) and tap t multiplies by the transpose of ``w9[8 - t]``."""
     _check_pair(x, w9, "x", "w9")
     b, h, w, cin = x.shape
-    if w9.shape[:2] != (9, cin):
-        raise ValueError(f"w9 must be (9, {cin}, Cout); got {tuple(w9.shape)}")
-    cout = w9.shape[2]
-    lib = _library()
+    cin_axis, cout_axis = (2, 1) if transposed else (1, 2)
+    if w9.dim() != 3 or w9.shape[0] != 9 or w9.shape[cin_axis] != cin:
+        want = f"(9, Cout, {cin})" if transposed else f"(9, {cin}, Cout)"
+        raise ValueError(f"w9 must be {want}; got {tuple(w9.shape)}")
+    cout = w9.shape[cout_axis]
     is_bf16 = int(x.dtype == torch.bfloat16)
-    shared = lib.conv3x3_fwd_shared_bytes(x.data_ptr(), cin, int(paired), is_bf16)
+    # torch.empty's memory is 16-byte aligned
+    shared = _fwd_shared_bytes(cin, cout, paired, is_bf16, _aligned(x, w9))
     if shared > _MAX_SHARED_BYTES:
         raise ValueError(
             f"Cin = {cin} needs {shared} bytes of shared memory in the forward kernel, "
             f"more than the {_MAX_SHARED_BYTES} a block can use"
         )
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    # the runtime launches on the current device, which must own the stream
-    with torch.cuda.device(x.device):
-        err = lib.conv3x3_fwd(
+    with _on_device(x.device):
+        err = _library().conv3x3_fwd(
             x.data_ptr(), w9.data_ptr(), out.data_ptr(), b, h, w, cin, cout, int(paired),
-            is_bf16, _stream(x.device),
+            int(transposed), is_bf16, _stream(x.device),
         )
     if err != 0:
         raise RuntimeError(f"conv3x3_fwd launch failed: CUDA error {err}")
     launch_counts["conv3x3_fwd_paired" if paired else "conv3x3_fwd"] += 1
     return out
+
+
+def _launch_dx(g: torch.Tensor, w9: torch.Tensor, paired: bool) -> torch.Tensor:
+    """The input gradient from ``g`` (B, H, W, Cout) and the convolution's own
+    ``w9`` (9, Cin, Cout) → (B, H, W, Cin): a SAME convolution of ``g`` with
+    the taps reversed and in/out transposed, by the forward kernel.  The
+    wgmma kernel reads ``w9`` that way itself; for the other sets the
+    weights are laid out so first (two small PyTorch kernels)."""
+    is_bf16 = int(g.dtype == torch.bfloat16)
+    if _fwd_kernel_set(w9.shape[2], w9.shape[1], is_bf16, _aligned(g, w9)) == "wgmma":
+        return _launch_fwd(g, w9, paired, transposed=True)
+    return _launch_fwd(g, w9.flip(0).transpose(1, 2).contiguous(), paired)
 
 
 def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -148,18 +227,14 @@ def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     is_bf16 = int(x.dtype == torch.bfloat16)
     # blocks that walk the pixel tiles, each writing one (9, Cin, Cout)
     # float32 partial (147,456 bytes at 64 -> 64); the library bounds them
-    n_blocks = lib.conv3x3_dw_blocks(x.data_ptr(), g.data_ptr(), b, h, w, cin, is_bf16)
+    n_blocks = _dw_blocks(b, h, w, cin, cout, is_bf16, _aligned(x, g), x.device.index)
     partials = torch.empty((n_blocks, 9, cin, cout), dtype=torch.float32, device=x.device)
     dw = torch.empty((9, cin, cout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = _stream(x.device)
-        err = lib.conv3x3_dw_partials(
-            x.data_ptr(), g.data_ptr(), partials.data_ptr(), b, h, w, cin, cout, n_blocks,
-            is_bf16, stream,
+    with _on_device(x.device):
+        err = lib.conv3x3_dw(
+            x.data_ptr(), g.data_ptr(), partials.data_ptr(), dw.data_ptr(), b, h, w, cin, cout,
+            n_blocks, is_bf16, _stream(x.device),
         )
-        if err == 0:
-            err = lib.conv3x3_dw_finish(partials.data_ptr(), dw.data_ptr(), n_blocks, cin, cout,
-                                        stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_dw launch failed: CUDA error {err}")
     launch_counts["conv3x3_dw"] += 1
@@ -190,8 +265,7 @@ class Conv3x3Same(torch.autograd.Function):
         g = g.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            # a SAME conv of g with the taps reversed and in/out transposed
-            dx = _launch_fwd(g, w9.flip(0).transpose(1, 2).contiguous(), ctx.paired)
+            dx = _launch_dx(g, w9, ctx.paired)
         if ctx.needs_input_grad[1]:
             dw = _launch_dw(x, g).reshape(w_shape).to(w_dtype)
         return dx, dw, None

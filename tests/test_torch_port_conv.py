@@ -80,6 +80,51 @@ def test_bf16_storage_f32_accum(paired):
     assert torch.equal(out, ours)
 
 
+# Channel counts that the wgmma kernels take on the card (Cin 64 or 128, Cout a
+# multiple of 64), small in space: the plain version that those kernels are held
+# to, in both tap orders, against the JAX kernel.
+WGMMA_SHAPES = [(1, 8, 16, 64, 64), (1, 16, 8, 128, 64), (1, 8, 16, 64, 128)]
+
+
+def _cotangent(shape, seed):
+    b, h, w, _, cout = shape
+    return (np.random.default_rng(seed).standard_normal((b, h, w, cout)) * 0.1).astype(np.float32)
+
+
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_plain_version_matches_jax_at_the_wgmma_channel_counts(paired, shape):
+    x, wt = _data(*shape, seed=4)
+    cot = _cotangent(shape, seed=5)
+    ref, vjp = jax.vjp(lambda a, b: jax_conv3x3_same(a, b, paired), jnp.asarray(x), jnp.asarray(wt))
+    dxr, dwr = vjp(jnp.asarray(cot))
+    xt, wtt = torch.tensor(x, requires_grad=True), torch.tensor(wt, requires_grad=True)
+    ours = conv3x3_same_reference(xt, wtt, paired)
+    dxo, dwo = torch.autograd.grad(ours, (xt, wtt), torch.tensor(cot))
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dxo.numpy(), np.asarray(dxr), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dwo.numpy(), np.asarray(dwr), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_plain_version_matches_jax_in_bf16_at_the_wgmma_channel_counts(paired, shape):
+    x, wt = _data(*shape, seed=6)
+    bf = torch.bfloat16
+    xb, wb, cb = (torch.tensor(a).to(bf) for a in (x, wt, _cotangent(shape, seed=7)))
+    # the same bf16 values on the JAX side
+    as_jax = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    ref, vjp = jax.vjp(lambda a, b: jax_conv3x3_same(a, b, paired), as_jax(xb), as_jax(wb))
+    dxr, dwr = vjp(as_jax(cb))
+    xt, wtt = xb.clone().requires_grad_(True), wb.clone().requires_grad_(True)
+    ours = conv3x3_same_reference(xt, wtt, paired)
+    dxo, dwo = torch.autograd.grad(ours, (xt, wtt), cb)
+    assert ours.dtype == dxo.dtype == dwo.dtype == bf
+    for got, want in ((ours.detach(), ref), (dxo, dxr), (dwo, dwr)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.parametrize("paired", [False, True])
 def test_border_zero_padding(paired):
     """An all-ones input: border sums must reflect zero padding exactly."""

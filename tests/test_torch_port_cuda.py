@@ -278,7 +278,13 @@ def _k4_grads(fn, x, wt, cot, paired):
     ((1, 8, 32, 4, 12), torch.float32), ((2, 44, 64, 16, 24), torch.float32),
     ((2, 44, 64, 16, 24), torch.bfloat16), ((1, 16, 32, 72, 136), torch.float32),
     ((1, 20, 24, 8, 8), torch.float32), ((2, 16, 16, 8, 8), torch.bfloat16),
-    ((1, 20, 24, 80, 136), torch.bfloat16),
+    ((1, 20, 24, 80, 136), torch.bfloat16), ((2, 16, 16, 16, 24), torch.bfloat16),
+    # the wgmma kernels: one tile, an image smaller than a tile, ragged tiles
+    # below and above the number of SMs, a second channel chunk each way, dW alone
+    ((1, 8, 16, 64, 64), torch.bfloat16), ((2, 5, 8, 64, 64), torch.bfloat16),
+    ((2, 44, 72, 64, 64), torch.bfloat16),
+    ((3, 72, 136, 64, 64), torch.bfloat16), ((1, 20, 24, 128, 64), torch.bfloat16),
+    ((1, 16, 32, 64, 128), torch.bfloat16), ((1, 16, 16, 192, 64), torch.bfloat16),
 ])
 def test_conv_kernel_matches_plain_version(cuda, shape, dtype, paired):
     x, wt, cot = _k4_case(shape, dtype, cuda)
@@ -293,6 +299,37 @@ def test_conv_kernel_matches_plain_version(cuda, shape, dtype, paired):
     for k, p, (rtol, atol) in zip(kernel, plain, bars):
         assert k.dtype == dtype and k.shape == p.shape
         assert torch.all((k.float() - p.float()).abs() <= atol + rtol * p.float().abs())
+
+
+@pytest.mark.parametrize("shape,dtype,sets", [
+    ((8, 128, 128, 64, 64), torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    ((2, 44, 72, 64, 64), torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    ((1, 20, 24, 128, 64), torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    ((1, 16, 32, 64, 128), torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    ((1, 16, 16, 192, 64), torch.bfloat16, ("wmma", "wgmma", "wgmma")),
+    ((2, 16, 16, 16, 24), torch.bfloat16, ("wmma", "cuda-cores", "wmma")),
+    ((2, 16, 16, 16, 24), torch.float32, ("cuda-cores", "cuda-cores", "cuda-cores")),
+    ((2, 16, 16, 64, 64), torch.float32, ("cuda-cores", "cuda-cores", "cuda-cores")),
+])
+def test_conv_kernel_set_follows_the_operands(cuda, shape, dtype, sets):
+    """The library picks the kernel set of the forward, of dx (a forward on
+    the cotangent with Cin and Cout exchanged) and of dW by what the
+    operands are, and a misaligned pointer takes the CUDA cores."""
+    x, wt, cot = _k4_case(shape, dtype, cuda)
+    w9 = wt.reshape(9, shape[3], shape[4])
+    assert K4.kernel_set(x, w9) == sets[0]
+    assert K4.kernel_set(cot, w9.transpose(1, 2).contiguous()) == sets[1]
+    assert K4.kernel_set(x, cot, dw=True) == sets[2]
+    if dtype == torch.bfloat16:
+        flat = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda)
+        off = flat[1:].view(x.shape).copy_(x)  # 2 bytes past a 16-byte boundary
+        assert K4.kernel_set(off, w9) == K4.kernel_set(off, cot, dw=True) == "cuda-cores"
+        out = K4._launch_fwd(off, w9, False)
+        dw = K4._launch_dw(off, cot)
+        torch.cuda.synchronize()
+        ref = K4.conv3x3_same_reference(x, wt)
+        assert torch.all((out.float() - ref.float()).abs() <= 1e-2 + 2.0 ** -7 * ref.float().abs())
+        assert dw.shape == (9, shape[3], shape[4]) and bool(torch.isfinite(dw).all())
 
 
 def test_conv_on_the_card_runs_its_kernels_and_nothing_else(cuda, monkeypatch):
