@@ -10,11 +10,16 @@ final result line):
 2. build every CUDA kernel from ``csrc/`` (four sources, one ``nvcc``
    each, started together), timing the build;
 3. hold each kernel against its plain PyTorch version on the card: K1 at
-   the training shape and at shapes that stress row tiling, odd sizes,
-   masked slots, saturated probabilities and the diffusion-only residual;
-   K2 (the fused AdamW) bit for bit at the U-Net's parameter shapes and at
-   awkward sizes, misaligned and beyond one launch's table; and whether
-   PyTorch divides by a Python float truly on the card;
+   the training shape and at shapes that stress the tiling (H and W of 2
+   to 5, shapes that end inside a tile both ways, W of 1000 and 4096),
+   masked slots, saturated probabilities and the diffusion-only residual,
+   against autograd of the plain sums and against the tile-wise plain
+   backward, with and without dt, repeated bit for bit, and captured in a
+   CUDA graph and replayed; K2 (the fused AdamW) bit for bit at the
+   U-Net's parameter shapes and at awkward sizes, misaligned and beyond one
+   launch's table, its plan kept over steps with fresh gradients and made
+   anew for a replaced tensor; and whether PyTorch divides by a Python
+   float truly on the card;
 4. check the U-Net forward on the card against the CPU in float32;
 5. drive the port's main path, ``train()``, at full width (U-Net with
    base_channels 64, 128x128 images, batch 8, bf16, one epoch per stage)
@@ -55,8 +60,9 @@ final result line):
 10. time the kernels, their plain versions, the library's calls (fused
    AdamW, ``F.conv2d`` and its weight gradient) and
    steady-state Stage II training with "adamw" and "pallas_adamw", with
-   CUDA events; K4's kernels and its library calls also by device time
-   per launch (``torch.profiler``), which leaves the wrapper out;
+   CUDA events; K1's, K2's and K4's kernels and the library's calls also
+   by device time per call (``torch.profiler``), which leaves the wrapper
+   out and lists the device kernels a call launched;
 11. print one JSON line describing every kernel, then the result line.
 
 Needs one card, a CUDA toolkit (``nvcc``) and this repository around it.
@@ -177,7 +183,10 @@ def grad_ok(k, p) -> bool:
 
 
 def check_kernels() -> dict:
-    """Kernel vs plain version at every case; returns the main-shape errors."""
+    """Kernel vs both plain versions at every case; returns the main-shape
+    errors."""
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
+
     cases = [
         ("train shape (8,128,128)", (8, 128, 128), {}, True),
         ("row tiling (2,512,512)", (2, 512, 512), {}, True),
@@ -185,7 +194,14 @@ def check_kernels() -> dict:
         ("masked slots (4,32,32)", (4, 32, 32), {"mask": [1, 0, 1, 0]}, True),
         ("saturated u (2,16,16)", (2, 16, 16), {"saturated": True}, True),
         ("no reaction (2,64,64)", (2, 64, 64), {}, False),
+        ("ends inside a tile both ways (3,130,70)", (3, 130, 70), {"mask": [1, 0, 1]}, True),
+        ("W = 1000 (2,24,1000)", (2, 24, 1000), {}, True),
+        ("W = 4096 (1,3,4096)", (1, 3, 4096), {}, True),
+        ("unaligned rows, two tiles across (2,37,101)", (2, 37, 101), {"saturated": True}, False),
     ]
+    cases += [(f"small ({b},{h},{w})", (b, h, w), {}, (h + w) % 2 == 0)
+              for b, h, w in [(2, 2, 2), (1, 2, 5), (3, 3, 3), (1, 3, 4), (2, 4, 2), (1, 4, 4),
+                              (1, 5, 3), (2, 5, 5), (1, 2, 130), (1, 66, 2)]]
     errors = {}
     for i, (label, shape, kw, use_reaction) in enumerate(cases):
         u, t, m, cot = make_case(shape, seed=i, **kw)
@@ -197,18 +213,64 @@ def check_kernels() -> dict:
         err_s = float((sk - sp).abs().max())
         err_du = float((duk - dup).abs().max())
         err_dt = float((dtk - dtp).abs().max())
+        dut, dtt = K.fused_physics_sums_bwd_tiled(u, t, m, cot, D, A, EPS, use_reaction)
         print(f"K1 {label}: max|d sums| {err_s:.3e}, max|d du| {err_du:.3e} "
-              f"(max|du| {float(dup.abs().max()):.3e}), max|d dt| {err_dt:.3e}")
+              f"(max|du| {float(dup.abs().max()):.3e}), max|d dt| {err_dt:.3e}; against the "
+              f"tile-wise plain backward {float((duk - dut).abs().max()):.3e}, "
+              f"{float((dtk - dtt).abs().max()):.3e}")
         check(sum_ok, f"{label}: forward sums differ beyond rtol {SUM_RTOL}")
         check(grad_ok(duk, dup), f"{label}: du differs beyond tolerance")
         check(grad_ok(dtk, dtp), f"{label}: dt differs beyond tolerance")
+        check(grad_ok(duk, dut) and grad_ok(dtk, dtt),
+              f"{label}: du or dt differs from the tile-wise plain backward")
         if "mask" in kw:
             dead = torch.tensor(kw["mask"], device=u.device) == 0
             check(bool((duk[dead] == 0).all() and (dtk[dead] == 0).all()),
                   "masked slots must get exactly zero gradient")
+        # without dt: the same du to the bit, and nothing in dt's place
+        du_only, none = K._launch_bwd(u, t, m, cot, D, A, EPS, use_reaction, need_dt=False)
+        check(none is None and torch.equal(du_only, duk), f"{label}: du changes without dt")
+        # no float atomics: the same inputs give the same bits
+        again = kernel_and_plain(u, t, m, cot, use_reaction)["kernel"]
+        check(all(torch.equal(a, b) for a, b in zip(again, res["kernel"])),
+              f"{label}: the kernels do not repeat bit for bit")
         if i == 0:
             errors = {"physics_sums_fwd": err_s, "physics_sums_bwd": max(err_du, err_dt)}
+    check_kernels_in_a_graph()
     return errors
+
+
+def check_kernels_in_a_graph() -> None:
+    """K1 forward and backward captured in one CUDA graph and replayed on
+    three inputs: bit-equal to the eager calls.  The forward's ticket is
+    part of no memset, so this shows that the last block sets it back."""
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
+
+    args = (D, A, EPS, True)
+    for shape in ((8, 128, 128), (3, 130, 70)):
+        u, t, m, cot = make_case(shape, seed=200)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            K._launch_fwd(u, t, m, *args)  # the stream's workspace is made outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            sums = K._launch_fwd(u, t, m, *args)
+            du, dt = K._launch_bwd(u, t, m, cot, *args, need_dt=True)
+        for seed in (201, 202, 203):
+            fresh = make_case(shape, seed=seed)
+            for held, new in zip((u, t, m, cot), fresh):
+                held.copy_(new)
+            graph.replay()
+            torch.cuda.synchronize()
+            replayed = (sums.clone(), du.clone(), dt.clone())
+            eager = (K._launch_fwd(*fresh[:3], *args),
+                     *K._launch_bwd(*fresh, *args, need_dt=True))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(replayed, eager)),
+                  f"K1 replayed in a CUDA graph at {shape} differs from the eager call")
+        print(f"K1 forward + backward in a CUDA graph at {shape}: 3 replays on fresh inputs "
+              f"bit-equal to the eager calls")
 
 
 @contextlib.contextmanager
@@ -329,7 +391,41 @@ def check_adamw() -> float:
         check(err == 0.0, f"{label}: K2 is not bit-equal to its plain version")
         if main_err is None:
             main_err = err
+    check_adamw_plan()
     return main_err
+
+
+def check_adamw_plan() -> None:
+    """K2's plan at the U-Net's shapes: built at the first step, kept over
+    steps with fresh gradient tensors, made anew when a parameter tensor is
+    replaced (the old tensor is left alone), bit-equal to the plain AdamW
+    all the way."""
+    from physics_informed_image_segmentation_tpu_torch.train import adamw_kernel as K2
+    from physics_informed_image_segmentation_tpu_torch.train.optim import AdamW
+
+    params, grads = adamw_case(unet_param_shapes(), seed=30)
+    kernel = K2.FusedAdamW([p.clone() for p in params], 1e-4, 1e-5)
+    plain = AdamW([p.clone() for p in params], 1e-4, 1e-5)
+    plans = []
+    for gs in grads + grads[:1]:
+        kernel.step([g.clone() for g in gs])
+        plain.step(gs)
+        plans.append(kernel._plan)
+    check(all(p is plans[0] for p in plans), "K2 built a new plan though no tensor changed")
+    check(adamw_diff(kernel, plain) == 0.0, "K2 with a kept plan is not bit-equal")
+    old = kernel.params[3]
+    kept = old.clone()
+    kernel.params[3] = old.clone()
+    check(not plans[0].matches(kernel.params, kernel.m, kernel.v), "a stale plan still matches")
+    for gs in grads[1:]:
+        kernel.step([g.clone() for g in gs])
+        plain.step(gs)
+    torch.cuda.synchronize()
+    check(kernel._plan is not plans[0], "K2 kept its plan though a parameter was replaced")
+    check(torch.equal(old, kept), "K2 updated a tensor that is no longer a parameter")
+    check(adamw_diff(kernel, plain) == 0.0, "K2 after a replaced parameter is not bit-equal")
+    print(f"K2 plan: kept over {len(plans)} steps with fresh gradient tensors, made anew after a "
+          f"parameter tensor was replaced; {kernel.count} steps bit-equal to the plain AdamW")
 
 
 def check_unet() -> None:
@@ -944,17 +1040,69 @@ def device_us_per_call(fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    # what ran on the card, without the ranges that user annotations span there
     kernels = {e.key: _device_time(e) / reps for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and _device_time(e) > 0}
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_time(e) > 0
+               and not getattr(e, "is_user_annotation", False)}
     return {"total": sum(kernels.values()) if kernels else None, "kernels": kernels}
+
+
+# Device times are taken last: the phases that time calls with CUDA events or
+# the host's clock queue their device-time readings here and main() takes them
+# at the end, so that nothing is timed in a process that torch.profiler has
+# already traced (check_profiler_cost measures what that would have added).
+_device_jobs: list = []
+
+
+def defer_device_time(label: str, fn, sink: dict, key: str, ms: float | None = None) -> None:
+    """Queue ``sink[key] = device_us_per_call(fn)`` for the end of the run;
+    ``ms`` is the call's time by CUDA events, printed beside it."""
+    _device_jobs.append((label, fn, sink, key, ms))
+
+
+def run_device_jobs() -> None:
+    with torch.no_grad():
+        for label, fn, sink, key, ms in _device_jobs:
+            row = sink[key] = device_us_per_call(fn)
+            print_device_time(label, row)
+            if ms is not None and row["total"] is not None:
+                print(f"    per call by CUDA events minus device time: "
+                      f"{ms * 1e3 - row['total']:.1f} us")
+    _device_jobs.clear()
+
+
+def host_us_per_call(fn, reps: int = 1000) -> float:
+    """Microseconds a call of ``fn`` takes in a run of ``reps`` calls queued
+    back to back: host clock from a synchronise to the synchronise after the
+    last call, so the larger of the host's and the card's time per call,
+    without the cost of timing each call."""
+    for _ in range(reps // 10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def print_device_time(label: str, row: dict) -> None:
+    """One line for a :func:`device_us_per_call` result: the total and the
+    device kernels of one call, each with its time."""
+    if row["total"] is None:
+        print(f"{label}: not measured (the profiler traced no kernel)")
+        return
+    parts = ", ".join(f"{k[:60]} {v:.2f}" for k, v in sorted(row["kernels"].items(),
+                                                            key=lambda kv: -kv[1]))
+    print(f"{label}: {row['total']:.2f} us in {len(row['kernels'])} device kernel(s) ({parts})")
 
 
 def time_k4() -> dict:
     """K4 at the probe's shape (bf16): each kernel, its plain version and
     the library's call (``F.conv2d`` on channels-last operands;
-    ``torch.nn.grad.conv2d_weight`` for dW), median ms of 30 calls; and the
-    device time per call of the kernels and the library's calls, under
-    ``"device_us"``."""
+    ``torch.nn.grad.conv2d_weight`` for dW), median ms of 30 calls; the
+    device time per call of the kernels and the library's calls comes
+    under ``"device_us"`` when :func:`run_device_jobs` runs."""
     from physics_informed_image_segmentation_tpu_torch.ops import conv_kernel as K4
 
     x, wt, cot = k4_case(PROBE_SHAPE, torch.bfloat16, seed=80, scale=0.05)
@@ -982,23 +1130,16 @@ def time_k4() -> dict:
     for name, row in out.items():
         print(f"K4 {name} at (8,128,128,64->64) bf16: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
               f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.5f} by {row['bound_by']})")
-    with torch.no_grad():
-        device = {
-            "conv3x3_fwd": device_us_per_call(lambda: K4._launch_fwd(x, w9, False)),
-            "conv3x3_fwd_paired": device_us_per_call(lambda: K4._launch_fwd(x, w9, True)),
-            "conv3x3_fwd as dx": device_us_per_call(lambda: K4._launch_dx(cot, w9, False)),
-            "conv3x3_dw": device_us_per_call(lambda: K4._launch_dw(x, cot)),
-            "F.conv2d": device_us_per_call(lambda: F.conv2d(xn, wo, padding=1)),
-            "conv2d_weight": device_us_per_call(
-                lambda: torch.nn.grad.conv2d_weight(xn, wo.shape, gn, padding=1)),
-        }
-    for name, row in device.items():
-        if row["total"] is None:
-            print(f"K4 device time per call, {name}: not measured (the profiler traced no kernel)")
-            continue
-        parts = ", ".join(f"{k[:60]} {v:.2f}" for k, v in sorted(row["kernels"].items(),
-                                                                key=lambda kv: -kv[1]))
-        print(f"K4 device time per call, {name}: {row['total']:.2f} us ({parts})")
+    device: dict = {}
+    for name, fn in (
+        ("conv3x3_fwd", lambda: K4._launch_fwd(x, w9, False)),
+        ("conv3x3_fwd_paired", lambda: K4._launch_fwd(x, w9, True)),
+        ("conv3x3_fwd as dx", lambda: K4._launch_dx(cot, w9, False)),
+        ("conv3x3_dw", lambda: K4._launch_dw(x, cot)),
+        ("F.conv2d", lambda: F.conv2d(xn, wo, padding=1)),
+        ("conv2d_weight", lambda: torch.nn.grad.conv2d_weight(xn, wo.shape, gn, padding=1)),
+    ):
+        defer_device_time(f"K4 device time per call, {name}", fn, device, name)
     return {"rows": out, "device_us": device}
 
 
@@ -1135,12 +1276,12 @@ def time_cuda(fn, warmup=5, reps=30) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_pixels: int, batch: int, bwd: bool) -> tuple[float, str]:
+def bound_ms(n_pixels: int, batch: int, bwd: bool, need_dt: bool = True) -> tuple[float, str]:
     """Least time for the work on this card: bytes moved (each input read
     once, each output written once) or float32 operations, whichever is
     larger."""
-    if bwd:  # read u, t, m, cot; write du, dt
-        nbytes = 4 * n_pixels * 4 + batch * 4 + batch * 24
+    if bwd:  # read u, t, m, cot; write du and, where the target needs it, dt
+        nbytes = (4 if need_dt else 3) * n_pixels * 4 + batch * 4 + batch * 24
         flops = BWD_FLOPS_PER_PIXEL * n_pixels
     else:  # read u, t, m; write sums
         nbytes = 2 * n_pixels * 4 + batch * 4 + batch * 24
@@ -1156,23 +1297,39 @@ def time_kernels() -> dict:
     for shape in ((8, 128, 128), (8, 512, 512)):
         u, t, m, cot = make_case(shape, seed=100)
         args = (D, A, EPS, True)
-        fwd = lambda: K._launch_fwd(u, t, m, *args)
-        bwd = lambda: K._launch_bwd(u, t, m, cot, *args, need_dt=True)
+        # the tensors are bound now: the device-time readings call these after the loop
+        fwd = lambda u=u, t=t, m=m: K._launch_fwd(u, t, m, *args)
+        bwd = lambda u=u, t=t, m=m, cot=cot: K._launch_bwd(u, t, m, cot, *args, need_dt=True)
+        bwd_du = lambda u=u, t=t, m=m, cot=cot: K._launch_bwd(u, t, m, cot, *args,
+                                                              need_dt=False)
         with torch.no_grad():
             plain_fwd = lambda: K.fused_physics_sums_reference(u, t, m, *args)
             k_fwd, p_fwd = time_cuda(fwd), time_cuda(plain_fwd)
-        k_bwd = time_cuda(bwd)
+        k_bwd, k_bwd_du = time_cuda(bwd), time_cuda(bwd_du)
         uu, tt = u.clone().requires_grad_(True), t.clone().requires_grad_(True)
         sums = K.fused_physics_sums_reference(uu, tt, m, *args)
         p_bwd = time_cuda(lambda: torch.autograd.grad(sums, (uu, tt), cot, retain_graph=True))
         n = shape[0] * shape[1] * shape[2]
         b_fwd, b_fwd_by = bound_ms(n, shape[0], bwd=False)
         b_bwd, b_bwd_by = bound_ms(n, shape[0], bwd=True)
+        b_bwd_du, b_bwd_du_by = bound_ms(n, shape[0], bwd=True, need_dt=False)
+        queued = {"fwd": host_us_per_call(fwd), "bwd": host_us_per_call(bwd),
+                  "bwd_no_dt": host_us_per_call(bwd_du)}
+        device: dict = {}
+        for name, fn, ms in (("fwd", fwd, k_fwd), ("bwd", bwd, k_bwd),
+                             ("bwd_no_dt", bwd_du, k_bwd_du)):
+            defer_device_time(f"K1 device time per call at {shape}, {name}", fn, device, name, ms)
         out[shape] = dict(fwd=k_fwd, plain_fwd=p_fwd, bound_fwd=b_fwd, bound_fwd_by=b_fwd_by,
-                          bwd=k_bwd, plain_bwd=p_bwd, bound_bwd=b_bwd, bound_bwd_by=b_bwd_by)
-        print(f"K1 times at {shape}: fwd {k_fwd:.4f} ms (plain {p_fwd:.4f}, bound {b_fwd:.5f} "
-              f"by {b_fwd_by}); bwd {k_bwd:.4f} ms (plain {p_bwd:.4f}, bound {b_bwd:.5f} "
-              f"by {b_bwd_by})")
+                          bwd=k_bwd, plain_bwd=p_bwd, bound_bwd=b_bwd, bound_bwd_by=b_bwd_by,
+                          bwd_no_dt=k_bwd_du, bound_bwd_no_dt=b_bwd_du, device_us=device,
+                          queued_us=queued,
+                          tile_plan=tuple(K.tile_plan(*shape)))
+        print(f"K1 times at {shape} (tiles {tuple(K.tile_plan(*shape))}): fwd {k_fwd:.4f} ms "
+              f"(plain {p_fwd:.4f}, bound {b_fwd:.5f} by {b_fwd_by}); bwd {k_bwd:.4f} ms (plain "
+              f"{p_bwd:.4f}, bound {b_bwd:.5f} by {b_bwd_by}); bwd without dt {k_bwd_du:.4f} ms "
+              f"(bound {b_bwd_du:.5f} by {b_bwd_du_by})")
+        print(f"    in a run of 1000 calls queued back to back, us a call (the larger of the "
+              f"host's and the card's time): {queued}")
     print("library_ms: no single PyTorch call computes K1's function, so there is no "
           "library yardstick (null)")
     return out
@@ -1246,6 +1403,20 @@ def time_adamw() -> dict:
     for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
         runs[name].append(time_cuda(fns[name]))
     launches_per_step = K2.launch_counts["adamw"] / kernel.count
+    device: dict = {}
+    for name in ("kernel", "library"):
+        defer_device_time(f"K2 device time per step(), {name}", fns[name], device, name,
+                          statistics.mean(runs[name]))
+    # an empty kernel queue: what the host spends on a step when the card does not hold it up
+    host = {}
+    for name in ("kernel", "library"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fns[name]()
+        host[name] = (time.perf_counter() - t0) / 10 * 1e6
+        torch.cuda.synchronize()
+    print(f"K2 host time of a step() in a run of 10 that the card does not hold up, us: {host}")
     # what dividing truly (by a 0-dim tensor) costs the plain AdamW against
     # dividing by the Python float, over the same tensors
     from physics_informed_image_segmentation_tpu_torch.train.optim import _true_div
@@ -1257,11 +1428,26 @@ def time_adamw() -> dict:
     out = {k: statistics.mean(v) for k, v in runs.items()}
     out["bound"], out["bound_by"] = adamw_bound_ms(n)
     out["launches_per_step"] = launches_per_step
+    out["device_us"] = device
+    out["host_us"] = host
     print(f"K2 times over {n} params in {len(params)} tensors, ms per step() (two medians "
           f"each): kernel {runs['kernel']}, plain _foreach {runs['plain']}, "
           f"torch.optim.AdamW(fused=True) {runs['library']}; bound {out['bound']:.5f} ms by "
           f"{out['bound_by']}; {launches_per_step:g} launches per step")
     return out
+
+
+def check_profiler_cost() -> dict:
+    """K1's forward in a run of queued calls once more, now that
+    torch.profiler has traced the card in this process: what every timing
+    taken after a profile would carry."""
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
+
+    u, t, m, _ = make_case((8, 128, 128), seed=100)
+    after = host_us_per_call(lambda: K._launch_fwd(u, t, m, D, A, EPS, True))
+    print(f"K1 fwd at (8,128,128) in a run of 1000 queued calls after torch.profiler was used in "
+          f"this process: {after:.1f} us a call")
+    return {"k1_fwd_queued_us_after_profiler": after}
 
 
 def time_training(optimizer: str) -> float:
@@ -1346,6 +1532,9 @@ def main() -> int:
     for name in ("adamw", "pallas_adamw", "pallas_adamw", "adamw"):
         rates[name].append(time_training(name))
     torch.cuda.synchronize()
+    run_device_jobs()
+    profiler_left = check_profiler_cost()
+    torch.cuda.synchronize()
 
     main_shape = times[(8, 128, 128)]
     src = f"{PKG}/csrc/physics_sums.cu"
@@ -1397,6 +1586,15 @@ def main() -> int:
         "card": smi}))
     print(json.dumps({"stage2_train_img_per_s": rates, "card": smi}))
     print(json.dumps({"serving": serving, "conv_probe": probe["res"], "card": smi}))
+    print(json.dumps({"k1_device_us_per_call": {str(k): v["device_us"] for k, v in times.items()},
+                      "k1_ms_per_call": {str(k): {n: v[n] for n in ("fwd", "bwd", "bwd_no_dt")}
+                                         for k, v in times.items()},
+                      "k1_bound_ms": {str(k): {n: v[f"bound_{n}"] for n in ("fwd", "bwd", "bwd_no_dt")}
+                                      for k, v in times.items()},
+                      "k1_queued_us_per_call": {str(k): v["queued_us"] for k, v in times.items()},
+                      "k2_device_us_per_step": k2_times["device_us"],
+                      "k2_host_us_per_step": k2_times["host_us"], **profiler_left,
+                      "card": smi}))
     print(json.dumps({"k4_device_us_per_call": k4_times["device_us"],
                       "shape": "(8,128,128,64->64) bf16", "card": smi}))
     print(json.dumps({"kernels": kernels}))

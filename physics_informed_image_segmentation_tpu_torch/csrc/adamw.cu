@@ -13,18 +13,27 @@
 //
 // Bound: memory.  Per element it reads p, g, m, v and writes p, m, v: 28
 // bytes for ~15 flops.  For the U-Net at base 64 (20,543,809 parameters in
-// 46 tensors) that is 575 MB, 0.172 ms at 3.35 TB/s.
+// 46 tensors) that is 575 MB, 0.172 ms at 3.35 TB/s.  The kernel runs near
+// that bound; what a step costs beyond it is the host's work before the
+// launch, so the design keeps that work to what changes from step to step.
 //
-// Design (this first version is simple and right; making it fast is later
-// work):
+// Design:
 // * the TPU kernel packed leaves into 1.5 MiB buckets because of its 16 MiB
 //   scoped VMEM, and left bigger leaves to XLA.  Here one launch walks every
-//   tensor through a chunk table, as PyTorch's multi_tensor_apply does: the
-//   tensors' pointers and a prefix sum of their chunk counts travel by value
-//   in the kernel's argument (under 4 KB), and each block updates one chunk
-//   of kChunk elements of one tensor, so the big tensors spread over all
-//   SMs.  More than kMaxTensors tensors take several launches.  Pointers are
-//   read at every call: autograd hands out new gradient tensors every step.
+//   tensor, as PyTorch's multi_tensor_apply does: each block updates one
+//   chunk of kChunk elements of one tensor, so the big tensors spread over
+//   all SMs.
+// * a plan that lives on the card.  Parameters and moments belong to the
+//   optimizer and keep their addresses from step to step, so their pointers
+//   and sizes (`table`) and the list of chunks (`chunks`: for every block its
+//   tensor and its chunk within that tensor) are written to device memory
+//   once, by the wrapper (train/adamw_kernel.py builds both and rebuilds
+//   them when a tensor was replaced).  A block finds its work with one load
+//   from `chunks` and four from `table`; no search, nothing rebuilt a step.
+// * only what changes travels with the launch, by value in the kernel's
+//   arguments: the gradients' pointers (autograd hands out new tensors every
+//   step; up to kMaxTensors of them, 512 bytes) and bc1, bc2, -lr, wd.  More
+//   than kMaxTensors tensors take several launches, a plan each.
 // * 16-byte vector loads when all four of a tensor's pointers are 16-byte
 //   aligned (chunks start at multiples of kChunk elements), a scalar tail for
 //   sizes that are not multiples of 4, and a scalar path otherwise.
@@ -41,7 +50,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = kThreads * 4 * 4;  // elements a block updates: 4 float4 a thread
-constexpr int kMaxTensors = 64;           // the table stays under the 4 KB argument limit
+constexpr int kMaxTensors = 64;           // gradient pointers one launch carries by value
 
 // The plain version's constants: Python doubles rounded to float.
 constexpr float kB1 = static_cast<float>(0.9);
@@ -50,20 +59,14 @@ constexpr float kB2 = static_cast<float>(0.999);
 constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
 constexpr float kEps = static_cast<float>(1e-8);
 
-struct Table {
-  float* p[kMaxTensors];
+// What one launch carries by value.
+struct Step {
   const float* g[kMaxTensors];
-  float* m[kMaxTensors];
-  float* v[kMaxTensors];
-  int n[kMaxTensors];
-  int chunk_start[kMaxTensors + 1];  // first chunk of each tensor; [count] = total
-  int count;
   float bc1, bc2, neg_lr, wd;
 };
-static_assert(sizeof(Table) <= 4096, "kernel argument too large");
 
 __device__ __forceinline__ void adamw_element(float& p, float g, float& m, float& v,
-                                              const Table& t) {
+                                              const Step& t) {
   m = __fadd_rn(__fmul_rn(m, kB1), __fmul_rn(g, kOneMinusB1));
   v = __fadd_rn(__fmul_rn(v, kB2), __fmul_rn(__fmul_rn(g, g), kOneMinusB2));
   const float denom = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, t.bc2)), kEps);
@@ -72,21 +75,19 @@ __device__ __forceinline__ void adamw_element(float& p, float g, float& m, float
   p = __fadd_rn(p, __fmul_rn(u, t.neg_lr));
 }
 
-__global__ void __launch_bounds__(kThreads) adamw_kernel(const __grid_constant__ Table t) {
-  const int chunk = blockIdx.x;
-  // the tensor whose chunks hold this one: last i with chunk_start[i] <= chunk
-  int lo = 0, hi = t.count - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (t.chunk_start[mid] <= chunk) lo = mid; else hi = mid - 1;
-  }
-  const int i = lo;
-  const int begin = (chunk - t.chunk_start[i]) * kChunk;
-  const int len = min(t.n[i] - begin, kChunk);
-  float* p = t.p[i] + begin;
+// table: (4, count) 64-bit words on the card: the pointers of p, of m and of
+// v, then the sizes.  chunks: one (tensor, chunk within it) a block.
+__global__ void __launch_bounds__(kThreads)
+adamw_kernel(const long long* __restrict__ table, const int2* __restrict__ chunks, int count,
+             const __grid_constant__ Step t) {
+  const int2 work = chunks[blockIdx.x];
+  const int i = work.x;
+  const int begin = work.y * kChunk;
+  const int len = min((int)table[3 * count + i] - begin, kChunk);
+  float* p = reinterpret_cast<float*>(table[i]) + begin;
+  float* m = reinterpret_cast<float*>(table[count + i]) + begin;
+  float* v = reinterpret_cast<float*>(table[2 * count + i]) + begin;
   const float* g = t.g[i] + begin;
-  float* m = t.m[i] + begin;
-  float* v = t.v[i] + begin;
 
   const bool aligned = ((reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(v)) &
@@ -124,41 +125,29 @@ __global__ void __launch_bounds__(kThreads) adamw_kernel(const __grid_constant__
 
 extern "C" {
 
-// One AdamW step over n_tensors tensors; p[i], g[i], m[i], v[i] each hold
-// n[i] float32 values (0 < n[i] < 2^31; zero-size tensors are skipped).
-// Writes the number of kernel launches to *launches.
-int adamw_step(float* const* p, const float* const* g, float* const* m, float* const* v,
-               const long long* n, int n_tensors, float bc1, float bc2, float lr, float wd,
-               void* stream, int* launches) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Table t;
+// The two numbers a plan is built from: the elements a block updates and the
+// most tensors one launch takes.  The wrapper checks its own against them.
+void adamw_plan_layout(int* chunk, int* max_tensors) {
+  *chunk = kChunk;
+  *max_tensors = kMaxTensors;
+}
+
+// One AdamW step over the `count` (1..kMaxTensors) tensors of a plan on the
+// card: `table` (4, count) and `chunks` (n_chunks, 2) as adamw_kernel reads
+// them.  g[i] is this step's gradient of tensor i (host array of device
+// pointers), each as large as its parameter.
+int adamw_step(const long long* table, const int* chunks, int count, int n_chunks,
+               const float* const* g, float bc1, float bc2, float lr, float wd, void* stream) {
+  if (count < 1 || count > kMaxTensors || n_chunks < 1) return (int)cudaErrorInvalidValue;
+  Step t;
+  for (int i = 0; i < count; ++i) t.g[i] = g[i];
+  for (int i = count; i < kMaxTensors; ++i) t.g[i] = nullptr;
   t.bc1 = bc1;
   t.bc2 = bc2;
   t.neg_lr = -lr;
   t.wd = wd;
-  t.count = 0;
-  t.chunk_start[0] = 0;
-  *launches = 0;
-  for (int i = 0; i <= n_tensors; ++i) {
-    const bool last = i == n_tensors;
-    if (t.count > 0 && (last || t.count == kMaxTensors)) {
-      adamw_kernel<<<t.chunk_start[t.count], kThreads, 0, s>>>(t);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      ++*launches;
-      t.count = 0;
-    }
-    if (last) break;
-    if (n[i] <= 0) continue;
-    const int c = t.count;
-    t.p[c] = p[i];
-    t.g[c] = g[i];
-    t.m[c] = m[i];
-    t.v[c] = v[i];
-    t.n[c] = (int)n[i];
-    t.chunk_start[c + 1] = t.chunk_start[c] + (int)((n[i] + kChunk - 1) / kChunk);
-    t.count = c + 1;
-  }
+  adamw_kernel<<<n_chunks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, reinterpret_cast<const int2*>(chunks), count, t);
   return (int)cudaGetLastError();
 }
 

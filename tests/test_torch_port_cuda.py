@@ -61,16 +61,61 @@ def _grads(fn, u, t, m, cot, use_reaction):
 
 @pytest.mark.parametrize("shape,use_reaction", [
     ((8, 128, 128), True), ((2, 512, 512), True), ((3, 17, 23), True), ((2, 64, 64), False),
+    # tiles: H and W of 2 to 5, shapes that end inside a tile both ways, wide rows
+    ((2, 2, 2), True), ((1, 2, 5), False), ((3, 3, 3), True), ((1, 3, 4), True),
+    ((2, 4, 2), False), ((1, 4, 4), True), ((2, 5, 5), True), ((3, 130, 70), True),
+    ((2, 24, 1000), True), ((1, 3, 4096), True), ((2, 37, 101), False), ((1, 66, 2), True),
 ])
 def test_kernel_matches_plain_version(cuda, shape, use_reaction):
     u, t, cot = _case(shape, cuda)
     m = torch.ones((shape[0], 1), device=cuda)
+    if shape[0] == 3:
+        m[1] = 0.0
     ks, kdu, kdt = _grads(K.FusedPhysicsSums.apply, u, t, m, cot, use_reaction)
     ps, pdu, pdt = _grads(K.fused_physics_sums_reference, u, t, m, cot, use_reaction)
+    tdu, tdt = K.fused_physics_sums_bwd_tiled(u, t, m, cot, D, A, EPS, use_reaction)
     torch.cuda.synchronize()
     assert torch.all((ks - ps).abs() <= 1e-5 * ps.abs())
-    for k, p in ((kdu, pdu), (kdt, pdt)):
+    for k, p in ((kdu, pdu), (kdt, pdt), (kdu, tdu), (kdt, tdt)):
         assert torch.all((k - p).abs() <= 1e-6 * p.abs().max() + 1e-5 * p.abs())
+    # without dt the same du, and nothing written in dt's place
+    du_only, none = K._launch_bwd(u, t, m, cot, D, A, EPS, use_reaction, need_dt=False)
+    assert none is None and torch.equal(du_only, kdu)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 128), (3, 130, 70), (2, 5, 5)])
+def test_kernels_replay_in_a_cuda_graph(cuda, shape):
+    """Forward and backward captured once and replayed on fresh inputs are
+    bit-equal to the eager calls: the forward's last block leaves its
+    ticket at zero, and the backward needs no scratch."""
+    args = (D, A, EPS, True)
+    u, t, cot = _case(shape, cuda, seed=20)
+    m = torch.ones((shape[0], 1), device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K._launch_fwd(u, t, m, *args)  # the stream's workspace, made outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        sums = K._launch_fwd(u, t, m, *args)
+        du, dt = K._launch_bwd(u, t, m, cot, *args, need_dt=True)
+    for seed in (21, 22, 23):
+        u2, t2, cot2 = _case(shape, cuda, seed=seed)
+        u.copy_(u2), t.copy_(t2), cot.copy_(cot2)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = (K._launch_fwd(u2, t2, m, *args), *K._launch_bwd(u2, t2, m, cot2, *args,
+                                                                need_dt=True))
+        torch.cuda.synchronize()
+        for a, b in zip((sums, du, dt), eager):
+            assert torch.equal(a, b)
+
+
+def test_shared_memory_formula_is_the_kernels(cuda):
+    for tile_h in (8, 16, 32):
+        for bwd in (False, True):
+            assert K._library().physics_sums_shared_bytes(tile_h, int(bwd)) == K.shared_bytes(
+                tile_h, bwd)
 
 
 def test_masked_slots_and_launch_counts(cuda):
@@ -89,6 +134,21 @@ def test_forward_repeats_bit_for_bit(cuda):
     a = K.fused_physics_sums(u, t, m, D, A, EPS)
     b = K.fused_physics_sums(u, t, m, D, A, EPS)
     assert torch.equal(a, b)
+
+
+def test_forward_on_two_streams_keeps_a_workspace_each(cuda):
+    u, t, _ = _case((8, 128, 128), cuda, seed=2)
+    m = torch.ones((8, 1), device=cuda)
+    ref = K.fused_physics_sums(u, t, m, D, A, EPS)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(K.fused_physics_sums(u, t, m, D, A, EPS))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, ref) for o in outs)
 
 
 def test_objective_goes_through_the_kernel(cuda):
@@ -146,6 +206,38 @@ def test_adamw_kernel_bit_equal_to_plain_version(cuda, shapes, offset, launches)
     K2.reset_launch_counts()
     kernel, plain = _adamw_pair(shapes, cuda, offset=offset)
     assert K2.launch_counts["adamw"] == 3 * launches
+    for a, b in zip(kernel.params + kernel.m + kernel.v, plain.params + plain.m + plain.v):
+        assert torch.equal(a, b)
+
+
+def test_adamw_plan_is_kept_and_made_anew_for_a_replaced_tensor(cuda):
+    shapes = [(3, 3, 64, 64), (64,), (4097,), (5,)]
+    g = torch.Generator().manual_seed(9)
+    params = [torch.randn(s, generator=g).to(cuda) for s in shapes]
+    kernel = K2.FusedAdamW([p.clone() for p in params], 1e-3, 1e-5)
+    plain = AdamW([p.clone() for p in params], 1e-3, 1e-5)
+
+    def step():
+        grads = [torch.randn(s, generator=g).to(cuda) for s in shapes]  # fresh tensors
+        kernel.step([x.clone() for x in grads])
+        plain.step(grads)
+
+    K2.reset_launch_counts()
+    plans = []
+    for _ in range(4):
+        step()
+        plans.append(kernel._plan)
+    assert all(p is plans[0] for p in plans) and K2.launch_counts["adamw"] == 4
+    old = kernel.params[0]
+    kept = old.clone()
+    kernel.params[0] = old.clone()
+    step()
+    torch.cuda.synchronize()
+    assert kernel._plan is not plans[0] and torch.equal(old, kept)
+    kernel.load_state_dict(kernel.state_dict())
+    assert kernel._plan is None
+    step()
+    torch.cuda.synchronize()
     for a, b in zip(kernel.params + kernel.m + kernel.v, plain.params + plain.m + plain.v):
         assert torch.equal(a, b)
 

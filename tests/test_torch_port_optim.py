@@ -37,9 +37,12 @@ from physics_informed_image_segmentation_tpu_torch.data import (
 from physics_informed_image_segmentation_tpu_torch.models import UNet
 from physics_informed_image_segmentation_tpu_torch.train import engine
 from physics_informed_image_segmentation_tpu_torch.train.adamw_kernel import (
+    AdamWPlan,
     FusedAdamW,
+    _chunk_table,
     fused_adamw_,
     launch_counts,
+    plan_groups,
 )
 from physics_informed_image_segmentation_tpu_torch.train.objective import LossConfig
 from physics_informed_image_segmentation_tpu_torch.train.optim import (
@@ -192,6 +195,156 @@ def test_fused_adamw_checks_its_inputs():
                      WD)
     with pytest.raises(ValueError, match="equal lengths"):
         fused_adamw_(p, [], [torch.zeros(4)], [torch.zeros(4)], 0.1, 0.001, LR, WD)
+
+
+# ------------------------------------------------------------------ K2's plan
+
+
+def _covered(sizes, groups, chunk):
+    """Elements of each tensor that the groups' blocks update, from the
+    chunk tables alone, and the number of blocks."""
+    covered = [0] * len(sizes)
+    blocks = 0
+    for indices, chunk_start in groups:
+        table = _chunk_table(chunk_start)
+        assert table.shape == (chunk_start[-1], 2) and table.dtype == np.int32
+        blocks += len(table)
+        seen = set()
+        for tensor, within in table.tolist():
+            k = indices[tensor]
+            assert (k, within) not in seen and within * chunk < sizes[k]
+            seen.add((k, within))
+            covered[k] += min(chunk, sizes[k] - within * chunk)
+        # blocks of one tensor are neighbours, in order
+        assert table[:, 0].tolist() == sorted(table[:, 0].tolist())
+    return covered, blocks
+
+
+def test_plan_groups_for_the_unet_at_base_64():
+    sizes = [p.numel() for p in UNet(base_channels=64).parameters()]
+    assert len(sizes) == 46 and sum(sizes) == 20_543_809
+    groups = plan_groups(sizes)
+    assert len(groups) == 1  # one launch a step
+    indices, chunk_start = groups[0]
+    assert indices == list(range(46)) and len(chunk_start) == 47 and chunk_start[0] == 0
+    assert [b - a for a, b in zip(chunk_start, chunk_start[1:])] == [-(-n // 4096) for n in sizes]
+    covered, blocks = _covered(sizes, groups, 4096)
+    assert covered == sizes and blocks == chunk_start[-1] == sum(-(-n // 4096) for n in sizes)
+
+
+@pytest.mark.parametrize("sizes,chunk,max_tensors,n_groups", [
+    ([1, 3, 64, 1023, 4096, 4097, 65537, 315, 0, 1 << 20], 4096, 64, 1),
+    ([0, 5], 4096, 64, 1), ([0, 0], 4096, 64, 0),
+    ([17 * i + 1 for i in range(70)], 4096, 64, 2),
+    ([0, *range(1, 66), 0], 4096, 64, 2),
+    ([5, 0, 9, 4, 8, 1], 4, 2, 3),
+])
+def test_plan_groups_zero_sizes_and_more_tensors_than_a_launch_takes(sizes, chunk, max_tensors,
+                                                                     n_groups):
+    groups = plan_groups(sizes, chunk, max_tensors)
+    assert len(groups) == n_groups
+    live = [k for k, n in enumerate(sizes) if n > 0]
+    assert [k for indices, _ in groups for k in indices] == live  # in order, zero sizes left out
+    for indices, chunk_start in groups:
+        assert 1 <= len(indices) <= max_tensors and len(chunk_start) == len(indices) + 1
+        assert chunk_start == [0, *np.cumsum([-(-sizes[k] // chunk) for k in indices]).tolist()]
+    covered, _ = _covered(sizes, groups, chunk)
+    assert covered == sizes
+
+
+def _fused_pair(seed=6):
+    params, grads = _inputs(seed)
+    fused = FusedAdamW([torch.tensor(x) for x in params], LR, WD)
+    plain = AdamW([torch.tensor(x) for x in params], LR, WD)
+    return fused, plain, [[torch.tensor(x) for x in g] for g in grads]
+
+
+def _assert_same_state(fused, plain):
+    for a, b in zip(fused.params + fused.m + fused.v, plain.params + plain.m + plain.v):
+        assert torch.equal(a, b)
+
+
+def test_fused_adamw_keeps_its_plan_over_steps_with_fresh_gradients():
+    fused, plain, grads = _fused_pair()
+    plans = []
+    for g in grads:
+        fused.step([x.clone() for x in g])  # new gradient tensors every step, as autograd's
+        plain.step(g)
+        plans.append(fused._plan)
+    assert all(p is plans[0] for p in plans) and isinstance(plans[0], AdamWPlan)
+    assert fused.count == STEPS
+    _assert_same_state(fused, plain)
+
+
+@pytest.mark.parametrize("which", ["params", "m", "v"])
+def test_fused_adamw_plans_anew_when_a_tensor_is_replaced(which):
+    """A stale plan never updates the memory it was built from: after a
+    parameter or moment tensor is replaced the next step builds a new plan,
+    updates the new tensor and leaves the old one alone."""
+    fused, plain, grads = _fused_pair(7)
+    fused.step(grads[0])
+    plain.step(grads[0])
+    first = fused._plan
+    old = getattr(fused, which)[1]
+    kept = old.clone()
+    getattr(fused, which)[1] = old.clone()  # same values at another address
+    assert not first.matches(fused.params, fused.m, fused.v)
+    fused.step(grads[1])
+    plain.step(grads[1])
+    assert fused._plan is not first and fused._plan.matches(fused.params, fused.m, fused.v)
+    assert torch.equal(old, kept)
+    _assert_same_state(fused, plain)
+
+
+def test_fused_adamw_plans_anew_after_load_state_dict():
+    fused, plain, grads = _fused_pair(8)
+    fused.step(grads[0])
+    plain.step(grads[0])
+    other = FusedAdamW([p.clone() for p in fused.params], LR, WD)
+    other.step(grads[1])  # it has a plan of its own now
+    stale = other._plan
+    other.params = [p.clone() for p in fused.params]
+    other.load_state_dict(fused.state_dict())
+    assert other._plan is None
+    other.step(grads[1])
+    plain.step(grads[1])
+    assert other._plan is not stale
+    _assert_same_state(other, plain)
+
+
+def test_plan_validates_parameters_and_moments_once_and_gradients_every_step(monkeypatch):
+    from physics_informed_image_segmentation_tpu_torch.train import adamw_kernel
+
+    fused, _, grads = _fused_pair(9)
+    checked = []
+    real = adamw_kernel._check_tensor
+    monkeypatch.setattr(adamw_kernel, "_check_tensor",
+                        lambda name, *a: (checked.append(name), real(name, *a)))
+    for g in grads[:3]:
+        fused.step(g)
+    assert sorted(checked) == sorted("pmv" * len(SHAPES))  # once, at the first step; no gradient failed
+    with pytest.raises(TypeError, match=r"g\[1\] must be float32"):
+        fused.step([grads[3][0], grads[3][1].double(), grads[3][2]])
+    with pytest.raises(ValueError, match=r"g\[2\] has 63 elements, p\[2\] 64"):
+        fused.step([grads[3][0], grads[3][1], grads[3][2][:63]])
+    with pytest.raises(ValueError, match="expected 3 gradients"):
+        fused.step(grads[3][:2])
+    with pytest.raises(TypeError, match=r"m\[0\] must be float32"):
+        AdamWPlan(fused.params, [x.double() for x in fused.m], fused.v)
+    with pytest.raises(ValueError, match=r"v\[0\] must be contiguous"):
+        AdamWPlan([torch.zeros(2, 2)], [torch.zeros(2, 2)], [torch.zeros(2, 2).t()])
+    with pytest.raises(ValueError, match="equal lengths"):
+        AdamWPlan(fused.params, fused.m[:2], fused.v)
+
+
+def test_fused_adamw_copies_a_gradient_in_another_layout():
+    p = [torch.arange(12.0).reshape(3, 4) / 7.0]
+    g = torch.arange(12.0).reshape(4, 3).t() / 5.0  # same shape, other strides
+    assert not g.is_contiguous()
+    fused, plain = FusedAdamW([p[0].clone()], LR, WD), AdamW([p[0].clone()], LR, WD)
+    fused.step([g])
+    plain.step([g.contiguous()])
+    _assert_same_state(fused, plain)
 
 
 # ---------------------------------------------------------------- engine level
