@@ -38,11 +38,15 @@ final result line):
    2 steps and restored into a fresh state continues bit-equal to 4
    uninterrupted steps; ``train()`` with ``checkpoint_every=1``, a crash
    injected after Stage II epoch 1 and ``resume=True`` completes;
-8. K3 (the halo-padded physics sums) against its plain version at the
-   megapixel block (1,1026,1026), the training block (8,130,130), odd
-   sizes, the smallest band, saturated u and without the reaction term;
-   and K3 on the four ghost-filled row bands of a (2,256,256) field
-   against K1 on the whole field, sums and folded gradients;
+8. K3 (the halo-padded physics sums) against its plain version and its
+   tile-wise plain backward at the megapixel block (1,1026,1026), the
+   training block (8,130,130), odd pitches, interiors one pixel high, nine
+   images with ragged tiles, a block 4 bytes off its alignment, the
+   smallest band, saturated u and without the reaction term, each case
+   with the copy width it took, repeated bit for bit, and captured in a
+   CUDA graph and replayed; and K3 on the four ghost-filled row bands of a
+   (2,256,256) field against K1 on the whole field, sums and folded
+   gradients;
    then K4 (the 3x3 convolution: forward in both tap orders, dx and dW)
    against its plain version at the probe's shape (8,128,128,64) in bf16,
    the JAX tests' shapes, several tiles with ragged edges, two channel
@@ -60,9 +64,10 @@ final result line):
 10. time the kernels, their plain versions, the library's calls (fused
    AdamW, ``F.conv2d`` and its weight gradient) and
    steady-state Stage II training with "adamw" and "pallas_adamw", with
-   CUDA events; K1's, K2's and K4's kernels and the library's calls also
-   by device time per call (``torch.profiler``), which leaves the wrapper
-   out and lists the device kernels a call launched;
+   CUDA events; K1's, K2's, K3's and K4's kernels and the library's calls
+   also by device time per call (``torch.profiler``), which leaves the
+   wrapper out and lists the device kernels a call launched (K3: one each
+   way, or the script fails), and K1 and K3 in runs of queued calls;
 11. print one JSON line describing every kernel, then the result line.
 
 Needs one card, a CUDA toolkit (``nvcc``) and this repository around it.
@@ -745,44 +750,107 @@ def k3_case(shape, seed, *, saturated=False):
     return p.cuda(), torch.randn((shape[0], 2), generator=g).cuda()
 
 
+def k3_kernel_and_plain(p, cot, use_reaction):
+    from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
+
+    out = {}
+    for name, fn in (("kernel", K3.PaddedPhysicsSums.apply),
+                     ("plain", K3.padded_physics_sums_reference)):
+        pp = p.detach().requires_grad_(True)  # p's own storage: a misaligned view stays one
+        sums = fn(pp, D, A, EPS, use_reaction)
+        (dp,) = torch.autograd.grad(sums, pp, cot)
+        torch.cuda.synchronize()
+        out[name] = (sums.detach(), dp)
+    return out
+
+
 def check_k3() -> dict:
-    """K3 against its plain version; returns the megapixel block's errors."""
+    """K3 against its plain version and its tile-wise plain backward, with
+    the copy width every case takes; returns the megapixel block's errors."""
     from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
 
     cases = [
         ("megapixel block (1,1026,1026)", (1, 1026, 1026), {}, True),
         ("training block (8,130,130)", (8, 130, 130), {}, True),
-        ("odd size (3,37,53)", (3, 37, 53), {}, True),
+        ("odd pitch (3,37,53)", (3, 37, 53), {}, True),
+        ("odd pitch, W+2 = 35 (3,9,35)", (3, 9, 35), {}, True),
         ("smallest band (2,4,35)", (2, 4, 35), {}, True),
+        ("h = 1 (2,3,130)", (2, 3, 130), {}, True),
+        ("h = w = 1 (3,3,3)", (3, 3, 3), {}, False),
+        ("B = 9, tiles that do not divide (9,37,131)", (9, 37, 131), {}, True),
+        ("base 4 bytes off (8,130,130)", (8, 130, 130), {"misalign": True}, True),
         ("saturated u (2,18,26)", (2, 18, 26), {"saturated": True}, True),
         ("no reaction (8,130,130)", (8, 130, 130), {}, False),
         ("no reaction, saturated (3,37,53)", (3, 37, 53), {"saturated": True}, False),
     ]
     errors = {}
     for i, (label, shape, kw, use_reaction) in enumerate(cases):
-        p, cot = k3_case(shape, seed=40 + i, **kw)
-        out = {}
-        for name, fn in (("kernel", K3.PaddedPhysicsSums.apply),
-                         ("plain", K3.padded_physics_sums_reference)):
-            pp = p.clone().requires_grad_(True)
-            sums = fn(pp, D, A, EPS, use_reaction)
-            (dp,) = torch.autograd.grad(sums, pp, cot)
-            torch.cuda.synchronize()
-            out[name] = (sums.detach(), dp)
-        (sk, dk), (sp, dpl) = out["kernel"], out["plain"]
+        p, cot = k3_case(shape, seed=40 + i, saturated=kw.get("saturated", False))
+        if kw.get("misalign"):
+            p = placed(p, misalign=True)
+        width = K3.copy_bytes(p)
+        check(width == K3._library().padded_physics_copy_bytes(p.data_ptr(), shape[2]),
+              f"K3 {label}: the kernel and copy_bytes disagree on the copy width")
+        res = k3_kernel_and_plain(p, cot, use_reaction)
+        (sk, dk), (sp, dpl) = res["kernel"], res["plain"]
         check(bool(torch.isfinite(sk).all() and torch.isfinite(dk).all()),
               f"K3 {label}: kernel output not finite")
+        dt = K3.padded_physics_sums_bwd_tiled(p, cot, D, A, EPS, use_reaction)
         err_s, err_d = float((sk - sp).abs().max()), float((dk - dpl).abs().max())
-        print(f"K3 {label}: max|d sums| {err_s:.3e}, max|d dp| {err_d:.3e} "
-              f"(max|dp| {float(dpl.abs().max()):.3e})")
+        plan = tuple(K3.tile_plan(shape[0], shape[1] - 2, shape[2] - 2))
+        print(f"K3 {label}: {width}-byte copies, tiles {plan}; "
+              f"max|d sums| {err_s:.3e}, max|d dp| {err_d:.3e} (max|dp| "
+              f"{float(dpl.abs().max()):.3e}); against the tile-wise plain backward "
+              f"{float((dk - dt).abs().max()):.3e}")
+        check(width == (4 if kw.get("misalign") or shape[2] % 2 else 8),
+              f"K3 {label}: {width}-byte copies")
         check(bool(torch.all((sk - sp).abs() <= SUM_RTOL * sp.abs())),
               f"K3 {label}: forward sums differ beyond rtol {SUM_RTOL}")
         check(grad_ok(dk, dpl), f"K3 {label}: dp differs beyond tolerance")
+        check(grad_ok(dk, dt), f"K3 {label}: dp differs from the tile-wise plain backward")
         check(bool((dk[:, [0, 0, -1, -1], [0, -1, 0, -1]] == 0).all()),
               f"K3 {label}: the ghost ring's corners must get zero gradient")
+        # no float atomics: the same inputs give the same bits, three times over
+        for _ in range(2):
+            again = k3_kernel_and_plain(p, cot, use_reaction)["kernel"]
+            check(all(torch.equal(a, b) for a, b in zip(again, res["kernel"])),
+                  f"K3 {label}: the kernels do not repeat bit for bit")
         if i == 0:
             errors = {"padded_physics_fwd": err_s, "padded_physics_bwd": err_d}
+    check_k3_in_a_graph()
     return errors
+
+
+def check_k3_in_a_graph() -> None:
+    """K3 forward and backward captured in one CUDA graph and replayed on
+    three fresh inputs: bit-equal to the eager calls (the forward's last
+    block leaves its ticket at 0; the backward needs no scratch)."""
+    from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
+
+    args = (D, A, EPS, True)
+    for shape in ((1, 1026, 1026), (8, 130, 130), (9, 37, 131)):
+        p, cot = k3_case(shape, seed=210)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            K3._launch_fwd(p, *args)  # the stream's workspace is made outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            sums = K3._launch_fwd(p, *args)
+            dp = K3._launch_bwd(p, cot, *args)
+        for seed in (211, 212, 213):
+            fresh = k3_case(shape, seed=seed)
+            p.copy_(fresh[0])
+            cot.copy_(fresh[1])
+            graph.replay()
+            torch.cuda.synchronize()
+            replayed = (sums.clone(), dp.clone())
+            eager = (K3._launch_fwd(fresh[0], *args), K3._launch_bwd(*fresh, *args))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(replayed, eager)),
+                  f"K3 replayed in a CUDA graph at {shape} differs from the eager call")
+        print(f"K3 forward + backward in a CUDA graph at {shape}: 3 replays on fresh inputs "
+              f"bit-equal to the eager calls")
 
 
 def bands_with_ghosts(u, n_bands):
@@ -1143,7 +1211,7 @@ def time_k4() -> dict:
     return {"rows": out, "device_us": device}
 
 
-def drive_halo_path() -> dict:
+def drive_halo_path(smi: str) -> dict:
     """The data×space path at world 1: the megapixel step (1024x1024,
     base 64, bf16, 3 steps) through ``parallel/megapixel.py``; returns its
     result and K3's launch counts, read around it."""
@@ -1160,7 +1228,7 @@ def drive_halo_path() -> dict:
     print(f"megapixel halo step at world 1: 1024x1024, base 64, bf16, batch 1, 3 steps: losses "
           f"{res['losses']}; first step {res['first_step_ms']:.1f} ms, then "
           f"{res['ms_per_step']:.2f} ms/step; peak memory {res['peak_bytes'] / 2**30:.3f} GiB; "
-          f"launches {counts}")
+          f"launches {counts}; {smi}")
     check(counts["padded_physics_fwd"] == 3 and counts["padded_physics_bwd"] == 3,
           f"expected 3 forward and 3 backward K3 launches, got {counts}")
     check(all(np.isfinite(v) for v in res["losses"]), f"non-finite losses {res['losses']}")
@@ -1239,7 +1307,7 @@ def drive_dp_epoch() -> dict:
     return counts
 
 
-def drive_parallel_paths() -> dict:
+def drive_parallel_paths(smi: str) -> dict:
     """Phases of the data×space path, in a world of one on NCCL."""
     import torch.distributed as dist
 
@@ -1250,7 +1318,7 @@ def drive_parallel_paths() -> dict:
         initialize_distributed(f"file://{tmp}/store", world_size=1, rank=0)
         try:
             check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not NCCL")
-            out = {"halo": drive_halo_path()}
+            out = {"halo": drive_halo_path(smi)}
             out["vs_unsharded"] = check_halo_step_against_unsharded()
             out["dp_counts"] = drive_dp_epoch()
         finally:
@@ -1349,28 +1417,56 @@ def k3_bound_ms(shape, bwd: bool) -> tuple[float, str]:
 
 
 def time_k3() -> dict:
+    """K3 at the megapixel block and the training block: ms per wrapper
+    call by CUDA events, µs a call in a run of queued calls, and (under
+    ``"device_us"`` when :func:`run_device_jobs` runs) device µs and
+    device kernels per call."""
     from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
 
     out = {}
     for shape in ((1, 1026, 1026), (8, 130, 130)):
         p, cot = k3_case(shape, seed=60)
         args = (D, A, EPS, True)
+        # the tensors are bound now: the device-time readings call these after the loop
+        fwd = lambda p=p: K3._launch_fwd(p, *args)
+        bwd = lambda p=p, cot=cot: K3._launch_bwd(p, cot, *args)
         with torch.no_grad():
-            k_fwd = time_cuda(lambda: K3._launch_fwd(p, *args))
+            k_fwd = time_cuda(fwd)
             p_fwd = time_cuda(lambda: K3.padded_physics_sums_reference(p, *args))
-        k_bwd = time_cuda(lambda: K3._launch_bwd(p, cot, *args))
+        k_bwd = time_cuda(bwd)
         pp = p.clone().requires_grad_(True)
         sums = K3.padded_physics_sums_reference(pp, *args)
         p_bwd = time_cuda(lambda: torch.autograd.grad(sums, pp, cot, retain_graph=True))
         b_fwd, b_fwd_by = k3_bound_ms(shape, bwd=False)
         b_bwd, b_bwd_by = k3_bound_ms(shape, bwd=True)
+        queued = {"fwd": host_us_per_call(fwd), "bwd": host_us_per_call(bwd)}
+        device: dict = {}
+        for name, fn, ms in (("fwd", fwd, k_fwd), ("bwd", bwd, k_bwd)):
+            defer_device_time(f"K3 device time per call at {shape}, {name}", fn, device, name, ms)
         out[shape] = dict(fwd=k_fwd, plain_fwd=p_fwd, bound_fwd=b_fwd, bound_fwd_by=b_fwd_by,
-                          bwd=k_bwd, plain_bwd=p_bwd, bound_bwd=b_bwd, bound_bwd_by=b_bwd_by)
-        print(f"K3 times at {shape}: fwd {k_fwd:.4f} ms (plain {p_fwd:.4f}, bound {b_fwd:.5f} "
-              f"by {b_fwd_by}); bwd {k_bwd:.4f} ms (plain {p_bwd:.4f}, bound {b_bwd:.5f} "
-              f"by {b_bwd_by})")
+                          bwd=k_bwd, plain_bwd=p_bwd, bound_bwd=b_bwd, bound_bwd_by=b_bwd_by,
+                          queued_us=queued, device_us=device,
+                          tile_plan=tuple(K3.tile_plan(shape[0], shape[1] - 2, shape[2] - 2)),
+                          copy_bytes=K3.copy_bytes(p))
+        print(f"K3 times at {shape} (tiles {out[shape]['tile_plan']}, {out[shape]['copy_bytes']}"
+              f"-byte copies): fwd {k_fwd:.4f} ms (plain {p_fwd:.4f}, bound {b_fwd:.5f} by "
+              f"{b_fwd_by}); bwd {k_bwd:.4f} ms (plain {p_bwd:.4f}, bound {b_bwd:.5f} by "
+              f"{b_bwd_by})")
+        print(f"    in a run of 1000 calls queued back to back, us a call (the larger of the "
+              f"host's and the card's time): {queued}")
     print("library_ms: no single PyTorch call computes K3's function (null)")
     return out
+
+
+def check_k3_device_kernels(k3_times: dict) -> None:
+    """After :func:`run_device_jobs`: one device kernel a K3 call each way."""
+    for shape, row in k3_times.items():
+        for name, reading in row["device_us"].items():
+            if reading["total"] is None:
+                print(f"K3 device kernels a call at {shape}, {name}: not measured")
+                continue
+            check(len(reading["kernels"]) == 1,
+                  f"K3 {name} at {shape} ran {len(reading['kernels'])} device kernels a call")
 
 
 def adamw_bound_ms(n_params: int) -> tuple[float, str]:
@@ -1522,7 +1618,7 @@ def main() -> int:
     errors.update(check_k3())
     check_k3_against_k1()
     errors.update(check_k4())
-    parallel = drive_parallel_paths()
+    parallel = drive_parallel_paths(smi)
     probe = drive_probe()
     times = time_kernels()
     k3_times = time_k3()
@@ -1533,6 +1629,7 @@ def main() -> int:
         rates[name].append(time_training(name))
     torch.cuda.synchronize()
     run_device_jobs()
+    check_k3_device_kernels(k3_times)
     profiler_left = check_profiler_cost()
     torch.cuda.synchronize()
 
@@ -1594,6 +1691,15 @@ def main() -> int:
                       "k1_queued_us_per_call": {str(k): v["queued_us"] for k, v in times.items()},
                       "k2_device_us_per_step": k2_times["device_us"],
                       "k2_host_us_per_step": k2_times["host_us"], **profiler_left,
+                      "card": smi}))
+    k3 = {str(k): v for k, v in k3_times.items()}
+    print(json.dumps({"k3_device_us_per_call": {k: v["device_us"] for k, v in k3.items()},
+                      "k3_ms_per_call": {k: {n: v[n] for n in ("fwd", "bwd")}
+                                         for k, v in k3.items()},
+                      "k3_bound_ms": {k: {n: v[f"bound_{n}"] for n in ("fwd", "bwd")}
+                                      for k, v in k3.items()},
+                      "k3_queued_us_per_call": {k: v["queued_us"] for k, v in k3.items()},
+                      "k3_copy_bytes": {k: v["copy_bytes"] for k, v in k3.items()},
                       "card": smi}))
     print(json.dumps({"k4_device_us_per_call": k4_times["device_us"],
                       "shape": "(8,128,128,64->64) bf16", "card": smi}))

@@ -286,23 +286,99 @@ def _k3_grads(fn, p, cot, use_reaction):
     return sums.detach(), torch.autograd.grad(sums, pp, cot)[0]
 
 
-@pytest.mark.parametrize("shape,use_reaction,saturated", [
-    ((1, 1026, 1026), True, False), ((8, 130, 130), True, False), ((3, 37, 53), True, False),
-    ((2, 4, 35), True, False), ((2, 18, 26), True, True), ((8, 130, 130), False, False),
-])
-def test_padded_kernel_matches_plain_version(cuda, shape, use_reaction, saturated):
-    g = torch.Generator().manual_seed(5)
+def _k3_case(shape, device, seed=5, saturated=False):
+    g = torch.Generator().manual_seed(seed)
     if saturated:
         p = torch.randint(0, 3, shape, generator=g).float() / 2.0
     else:
         p = 0.02 + 0.96 * torch.rand(shape, generator=g)
-    p, cot = p.to(cuda), torch.randn((shape[0], 2), generator=g).to(cuda)
+    return p.to(device), torch.randn((shape[0], 2), generator=g).to(device)
+
+
+@pytest.mark.parametrize("shape,use_reaction,saturated", [
+    ((1, 1026, 1026), True, False), ((8, 130, 130), True, False), ((3, 37, 53), True, False),
+    ((2, 4, 35), True, False), ((2, 18, 26), True, True), ((8, 130, 130), False, False),
+    # odd pitch, interiors one pixel high or wide, nine images with ragged tiles
+    ((3, 9, 35), True, False), ((2, 3, 130), True, False), ((3, 3, 3), False, False),
+    ((2, 67, 3), True, False), ((9, 37, 131), True, False),
+])
+def test_padded_kernel_matches_plain_version(cuda, shape, use_reaction, saturated):
+    p, cot = _k3_case(shape, cuda, saturated=saturated)
     ks, kdp = _k3_grads(K3.PaddedPhysicsSums.apply, p, cot, use_reaction)
     ps, pdp = _k3_grads(K3.padded_physics_sums_reference, p, cot, use_reaction)
+    tdp = K3.padded_physics_sums_bwd_tiled(p, cot, D, A, EPS, use_reaction)
     torch.cuda.synchronize()
     assert torch.all((ks - ps).abs() <= 1e-5 * ps.abs())
-    assert torch.all((kdp - pdp).abs() <= 1e-6 * pdp.abs().max() + 1e-5 * pdp.abs())
+    for ref in (pdp, tdp):
+        assert torch.all((kdp - ref).abs() <= 1e-6 * ref.abs().max() + 1e-5 * ref.abs())
     assert torch.all(kdp[:, [0, 0, -1, -1], [0, -1, 0, -1]] == 0)
+
+
+def test_padded_kernel_takes_a_misaligned_block(cuda):
+    """A block 4 bytes off an 8-byte boundary goes in 4-byte copies, with
+    the same answers."""
+    p, cot = _k3_case((8, 130, 130), cuda, seed=9)
+    view = torch.empty(p.numel() + 1, device=cuda)[1:].view(p.shape)
+    view.copy_(p)
+    assert K3.copy_bytes(view) == 4 and K3.copy_bytes(p) == 8
+    for x in (p, view):
+        assert K3._library().padded_physics_copy_bytes(x.data_ptr(), 130) == K3.copy_bytes(x)
+    a = (K3._launch_fwd(p, D, A, EPS, True), K3._launch_bwd(p, cot, D, A, EPS, True))
+    b = (K3._launch_fwd(view, D, A, EPS, True), K3._launch_bwd(view, cot, D, A, EPS, True))
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("shape", [(1, 1026, 1026), (8, 130, 130), (9, 37, 131)])
+def test_padded_kernels_replay_in_a_cuda_graph(cuda, shape):
+    """Forward and backward captured once and replayed on fresh inputs are
+    bit-equal to the eager calls, which repeat bit for bit."""
+    args = (D, A, EPS, True)
+    p, cot = _k3_case(shape, cuda, seed=30)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K3._launch_fwd(p, *args)  # the stream's workspace, made outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        sums = K3._launch_fwd(p, *args)
+        dp = K3._launch_bwd(p, cot, *args)
+    for seed in (31, 32, 33):
+        p2, cot2 = _k3_case(shape, cuda, seed=seed)
+        p.copy_(p2), cot.copy_(cot2)
+        graph.replay()
+        torch.cuda.synchronize()
+        for _ in range(2):
+            eager = (K3._launch_fwd(p2, *args), K3._launch_bwd(p2, cot2, *args))
+            torch.cuda.synchronize()
+            assert torch.equal(sums, eager[0]) and torch.equal(dp, eager[1])
+
+
+@pytest.mark.parametrize("shape", [(1, 1026, 1026), (8, 130, 130)])
+def test_padded_kernel_is_one_device_kernel_a_call(cuda, shape):
+    from torch.profiler import ProfilerActivity, profile
+
+    p, cot = _k3_case(shape, cuda, seed=40)
+    K3._launch_fwd(p, D, A, EPS, True)  # the stream's workspace
+    torch.cuda.synchronize()
+    for fn in (lambda: K3._launch_fwd(p, D, A, EPS, True),
+               lambda: K3._launch_bwd(p, cot, D, A, EPS, True)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "padded_" in e.name]
+        others = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "padded_" not in e.name
+                  and not getattr(e, "is_user_annotation", False)]
+        assert len(kernels) == 1 and not others, (len(kernels), others)
+
+
+def test_padded_shared_memory_formula_is_the_kernels(cuda):
+    for tile_h in (1, 8, 16, 32):
+        for bwd in (False, True):
+            assert K3._library().padded_physics_shared_bytes(tile_h, int(bwd)) == K3.shared_bytes(
+                tile_h, bwd)
 
 
 def test_padded_kernel_counts_repeats_and_checks(cuda):
