@@ -29,7 +29,13 @@ final result line):
    padded last chunk) against the model's own forward, ``tta`` on a
    symmetric input, ``predict_device`` on 64 device-resident images
    against ``predict`` and its images per second, ``predict_tiled`` on a
-   512x512 image;
+   512x512 image; then the experiment layer at the same width: an ablation
+   study of R1.0 and a three-stage R1.3 (one epoch a stage) with K1's launch
+   counts (Stage II of R1.3 alone launches it), its files, result keys and
+   finite metrics, the same study resumed (no K1 launch, the same
+   aggregate), ``evaluate_and_compare`` and ``run_repeated_evaluations`` on
+   its checkpoints, and the ``run_ablation`` and ``evaluate`` CLIs on a
+   synthetic COCO layout;
 6. drive the K2 path, ``create_train_state(optimizer="pallas_adamw")``
    with the Stage II objective through ``train_stage``, at the same width
    and check its launch counts; then 3 float32 steps with deterministic
@@ -76,6 +82,7 @@ Needs one card, a CUDA toolkit (``nvcc``) and this repository around it.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -595,6 +602,247 @@ def drive_serving(model_path: Path) -> dict:
     print(f"predict_device: {rate:.1f} img/s (median of {len(rates)} runs over 64 device-resident "
           f"images; base 64, 128x128, batch 8, bf16)")
     return {"predict_device_img_per_s": rate, "runs": rates}
+
+
+def _finite_dice(metrics: dict, n: int, where: str) -> None:
+    dice = np.asarray(metrics["dice_scores"], np.float64)
+    check(dice.shape == (n,) and bool(np.isfinite(dice).all()), f"{where}: dice {dice}")
+
+
+def _stage_rows(path: Path) -> list:
+    import csv
+
+    check(path.exists(), f"{path.name} missing")
+    with open(path, newline="") as f:
+        rows = [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+    check(len(rows) >= 1, f"{path.name} is empty")
+    for row in rows:
+        check(all(np.isfinite(v) for v in row.values()), f"{path.name}: non-finite row {row}")
+    return rows
+
+
+# result keys of the JAX package's run_ablation_variant (three stages and
+# one stage) and of its study JSON
+THREE_STAGE_KEYS = {
+    "config", "model_path", "pde_model_path", "baseline_model_path", "baseline_in_dist_metrics",
+    "baseline_out_dist_metrics", "pde_in_dist_metrics", "pde_out_dist_metrics",
+    "stage3_in_dist_metrics", "stage3_out_dist_metrics", "metrics", "in_dist_metrics",
+    "out_dist_metrics", "stage_comparison"}
+SINGLE_STAGE_KEYS = {"config", "model_path", "in_dist_metrics", "out_dist_metrics", "metrics"}
+STUDY_KEYS = {"ablation_name", "variants", "num_runs", "results", "aggregated_results",
+              "aggregated_results_in_dist", "aggregated_results_out_dist"}
+
+
+@contextlib.contextmanager
+def quiet():
+    """Hold the experiment layer's own report (hundreds of lines a study) in
+    a buffer, and write its end to stderr if the block fails."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield
+    except BaseException:
+        sys.stderr.write(buf.getvalue()[-20000:])
+        raise
+
+
+def drive_experiments(smi: str, device: str = "cuda", base_channels: int = 64,
+                      size: int = 128) -> dict:
+    """The experiment layer at full width (base 64, 128x128, batch 8, bf16):
+    a two-variant study (R1.0, and R1.3 with the Stage III control, one
+    epoch a stage) with K1's launch counts, the same study resumed, the
+    pair and pooled comparisons on its checkpoints, and the ``run_ablation``
+    and ``evaluate`` CLIs on a synthetic COCO layout.  Returns the seconds
+    of each stage and the launch counts."""
+    import dataclasses
+
+    from physics_informed_image_segmentation_tpu_torch import evaluate as evaluate_cli
+    from physics_informed_image_segmentation_tpu_torch import run_ablation as ablation_cli
+    from physics_informed_image_segmentation_tpu_torch.data import (
+        DeviceDataset, make_blobs, write_synthetic_coco)
+    from physics_informed_image_segmentation_tpu_torch.experiments import (
+        ablation, evaluate_and_compare, run_ablation_study, run_repeated_evaluations, studies)
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
+
+    n = {"train": 32, "val": 8, "in_dist": 8, "out_dist": 8}
+    batch = 8
+    data = {}
+    for i, (split, count) in enumerate(n.items()):
+        images, masks = make_blobs(count, size, size, seed=30 + i)
+        data[split] = DeviceDataset.from_numpy(images, masks, device)
+    baseline = studies.define_ablation_r1()[0]
+    three = dataclasses.replace(studies.define_ablation_r1()[3], use_three_stage=True,
+                                stage1_epochs=1, stage2_epochs=1, stage3_epochs=1)
+    common = dict(datasets=data, batch_size=batch, stage1_epochs=1, stage2_epochs=1,
+                  precision="bf16", base_channels=base_channels, device=device)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    # seconds of each stage and of each evaluation of the first study,
+    # through the names the variant runner calls
+    seconds: dict = {}
+
+    def timed(fn, label):
+        def run(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            seconds.setdefault(kwargs.get("stage_name", label), []).append(
+                time.perf_counter() - t0)
+            return out
+        return run
+
+    scratch = REPO / "build"  # git-ignored
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        real_train_stage, real_evaluate = ablation.train_stage, ablation.evaluate_model
+        ablation.train_stage = timed(real_train_stage, "stage")
+        ablation.evaluate_model = timed(real_evaluate, "evaluate (one model, one test set)")
+        try:
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with quiet():
+                study = run_ablation_study("R1", [baseline, three], output_dir=tmp, **common)
+            sync()
+            study_s = time.perf_counter() - t0
+            counts = dict(K.launch_counts)
+        finally:
+            ablation.train_stage, ablation.evaluate_model = real_train_stage, real_evaluate
+        steps, val_batches = -(-n["train"] // batch), -(-n["val"] // batch)
+        print(f"ablation study (R1.0 and a three-stage R1.3, base {base_channels}, "
+              f"{size}x{size}, batch {batch}, bf16, one epoch a stage): {study_s:.2f} s; "
+              f"K1 launches {counts}")
+        check(counts["physics_sums_fwd"] == steps + val_batches,
+              f"expected {steps + val_batches} K1 forward launches on the ablation path, "
+              f"got {counts['physics_sums_fwd']}")
+        check(counts["physics_sums_bwd"] == steps,
+              f"expected {steps} K1 backward launches on the ablation path, "
+              f"got {counts['physics_sums_bwd']}")
+
+        folder = Path(study["ablation_folder"])
+        b_stem, t_stem = ablation._snake(baseline.name), ablation._snake(three.name)
+        _stage_rows(folder / f"{b_stem}_stage2_metrics.csv")
+        for stage in ("stage1", "stage2", "stage3"):
+            rows = _stage_rows(folder / f"{t_stem}_{stage}_metrics.csv")
+            check(len(rows) == 1, f"{t_stem} {stage} ran {len(rows)} epochs, expected 1")
+        row = _stage_rows(folder / f"{t_stem}_stage2_metrics.csv")[0]
+        check(row["train_pde_loss"] > 0 and row["val_pde_loss"] > 0,
+              "Stage II pde_loss must be positive")
+        names = [f"{b_stem}_{baseline.seed}.pth", f"{b_stem}_results.json",
+                 f"{t_stem}_baseline_after_stage1.pth", f"{t_stem}_after_pde_stage2.pth",
+                 f"{t_stem}_after_stage3.pth", f"{t_stem}_results.json"]
+        names += [f"{t_stem}_{pair}_comparison_{dist}.csv"
+                  for pair in ("stage1_vs_stage2", "stage1_vs_stage3", "stage2_vs_stage3")
+                  for dist in ("in_dist", "out_dist")]
+        for key in ("results_json", "summary_csv", "summary_csv_in_dist",
+                    "summary_csv_out_dist"):
+            names.append(Path(study[key]).name)
+        missing = [name for name in names if not (folder / name).exists()]
+        check(not missing, f"the study did not write {missing}")
+
+        results = json.loads(Path(study["results_json"]).read_text())
+        check(set(results) == STUDY_KEYS, f"study JSON keys {sorted(results)}")
+        by_name = {r["config"]["name"]: r for r in results["results"]}
+        check(set(by_name[baseline.name]) == SINGLE_STAGE_KEYS,
+              f"single-stage result keys {sorted(by_name[baseline.name])}")
+        res3 = by_name[three.name]
+        check(set(res3) == THREE_STAGE_KEYS, f"three-stage result keys {sorted(res3)}")
+        check(set(res3["stage_comparison"]) ==
+              {"stage1_vs_stage2", "stage1_vs_stage3", "stage2_vs_stage3"},
+              f"stage_comparison keys {sorted(res3['stage_comparison'])}")
+        for name, res in by_name.items():
+            for key in (k for k in res if k.endswith("_metrics") or k == "metrics"):
+                size_n = n["out_dist"] if "out_dist" in key else n["in_dist"]
+                _finite_dice(res[key], size_n, f"{name} {key}")
+
+        K.reset_launch_counts()
+        with quiet():
+            resumed = run_ablation_study("R1", [baseline, three], output_dir=tmp,
+                                         resume_from=folder, **common)
+        check(K.launch_counts == {"physics_sums_fwd": 0, "physics_sums_bwd": 0},
+              f"the resumed study launched K1: {K.launch_counts}")
+        # as JSON text: a Hausdorff distance of an empty prediction is NaN
+        check(json.dumps(resumed["aggregated_results"], sort_keys=True)
+              == json.dumps(study["aggregated_results"], sort_keys=True),
+              "the resumed study's aggregate differs from the first run's")
+        check(resumed["ablation_folder"] == str(folder), "the resumed study moved folder")
+        print("ablation study resumed from its folder: the same aggregate, no K1 launch")
+
+        pair = (folder / f"{t_stem}_baseline_after_stage1.pth",
+                folder / f"{t_stem}_after_pde_stage2.pth")
+        t0 = time.perf_counter()
+        with quiet():
+            cmp = evaluate_and_compare(*pair, None, None, batch_size=batch,
+                                       output_dir=tmp / "compare", test_data=data["in_dist"],
+                                       base_channels=base_channels, device=device)
+        compare_s = time.perf_counter() - t0
+        for key in ("baseline_metrics", "pde_metrics"):
+            _finite_dice(cmp[key], n["in_dist"], f"evaluate_and_compare {key}")
+        for key in ("results_csv", "summary_csv", "comparison_json"):
+            check(Path(cmp[key]).exists(), f"evaluate_and_compare did not write {key}")
+        check(set(cmp["comparison_results"]) == set(res3["in_dist_metrics"]),
+              "evaluate_and_compare compared other metrics")
+        with quiet():
+            rep = run_repeated_evaluations(
+                [pair[0], pair[0]], [pair[1], folder / f"{t_stem}_after_stage3.pth"], None,
+                None, batch_size=batch, output_dir=tmp / "repeated",
+                test_data=data["out_dist"], base_channels=base_channels, device=device)
+        _finite_dice(rep["pde_metrics"], 2 * n["out_dist"], "run_repeated_evaluations")
+        check(Path(rep["aggregated_csv"]).exists(), "no aggregated_results CSV")
+        print(f"evaluate_and_compare on the three-stage variant's Stage I and II "
+              f"checkpoints: {compare_s:.2f} s; dice p (t-test) "
+              f"{cmp['comparison_results']['dice_scores']['t_pvalue']:.4f}")
+
+        # the CLIs on a synthetic COCO layout of their default paths
+        coco = tmp / "coco"
+        for i, split in enumerate(("training", "validation", "in_dist_testing",
+                                   "out_dist_testing")):
+            img_dir, ann = write_synthetic_coco(coco / "tmp" / split, n=8, height=size,
+                                                width=size, seed=40 + i)
+            (coco / "images" / "annotation").mkdir(parents=True, exist_ok=True)
+            shutil.move(str(img_dir), coco / "images" / split)
+            shutil.move(str(ann), coco / "images" / "annotation" / f"{split}_annotation.json")
+        cwd = os.getcwd()
+        os.chdir(coco)
+        try:
+            with quiet():
+                t0 = time.perf_counter()
+                ablation_cli.main(["--ablation", "R1", "--stage1-epochs", "1",
+                                   "--stage2-epochs", "1", "--base-channels", str(base_channels),
+                                   "--device", device])
+                cli_s = time.perf_counter() - t0
+                (cli_folder,) = (coco / "output" / "ablation").glob("R1_*")
+                check(len(list(cli_folder.glob("*_results.json"))) == 4,
+                      "run_ablation R1 did not finish its four variants")
+                stem = "r1.3_rd_+_phase-field"
+                cli_pair = [str(cli_folder / f"{stem}_baseline_after_stage1.pth"),
+                            str(cli_folder / f"{stem}_after_pde_stage2.pth")]
+                test = ["--test-dir", "images/in_dist_testing", "--test-json",
+                        "images/annotation/in_dist_testing_annotation.json",
+                        "--base-channels", str(base_channels), "--device", device]
+                evaluate_cli.main(["--baseline", cli_pair[0], "--pde", cli_pair[1],
+                                   "--output-dir", "pair", *test])
+                evaluate_cli.main(["--baseline", str(cli_folder / "*_baseline_after_stage1.pth"),
+                                   "--pde", str(cli_folder / "*_after_pde_stage2.pth"),
+                                   "--repeated", "--output-dir", "repeated", *test])
+                evaluate_cli.main(["--model-path", cli_pair[1], "--output-dir", "single", *test])
+        finally:
+            os.chdir(cwd)
+        check(len(list((coco / "pair").glob("*"))) == 3, "evaluate (pair) files missing")
+        check(len(list((coco / "repeated").glob("aggregated_results_*.csv"))) == 1,
+              "evaluate --repeated wrote no aggregated CSV")
+        single = json.loads((coco / "single" / f"single_model_metrics_{stem}_after_pde_stage2"
+                             ".json").read_text())
+        _finite_dice({"dice_scores": single["dice_scores"]["per_image"]}, 8,
+                     "evaluate --model-path")
+        print(f"run_ablation --ablation R1 (8 images a split, one epoch a stage): "
+              f"{cli_s:.2f} s; evaluate: pair, --repeated and --model-path")
+    return {"study_s": study_s, "stage_s": seconds, "k1_launches": counts,
+            "evaluate_and_compare_s": compare_s, "run_ablation_cli_s": cli_s, "card": smi}
 
 
 def unet64(seed: int = 0):
@@ -1610,6 +1858,8 @@ def main() -> int:
     finally:
         served_model.unlink(missing_ok=True)
     torch.cuda.synchronize()
+    experiments = drive_experiments(smi)
+    torch.cuda.synchronize()
     k2_counts = drive_adamw_path()
     check_adamw_path_bit_equal()
     check_resume_engine()
@@ -1703,6 +1953,7 @@ def main() -> int:
                       "card": smi}))
     print(json.dumps({"k4_device_us_per_call": k4_times["device_us"],
                       "shape": "(8,128,128,64->64) bf16", "card": smi}))
+    print(json.dumps({"experiments": experiments}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

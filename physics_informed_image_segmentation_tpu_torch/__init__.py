@@ -10,8 +10,10 @@ AdamW written by hand in CUDA (``csrc/physics_sums.cu``,
 halo-padded physics kernel in CUDA (``csrc/padded_physics.cu``).
 ``serve`` and ``predict`` apply a trained model to new images, and
 ``utils.conv_probe`` times the hand-written 3x3 convolution
-(``csrc/conv3x3.cu``) against cuDNN's.  Entry points run on CUDA unless
-they are given ``device="cpu"``.
+(``csrc/conv3x3.cu``) against cuDNN's.  ``experiments`` runs the
+ablation studies and the statistical model comparison (CLIs ``evaluate``
+and ``run_ablation``).  Entry points run on CUDA unless they are given
+``device="cpu"``.
 """
 
 from .models import UNet, count_parameters  # noqa: F401

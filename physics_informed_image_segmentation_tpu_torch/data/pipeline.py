@@ -50,6 +50,10 @@ class DeviceDataset:
             torch.as_tensor(np.asarray(masks, np.float32), device=device),
         )
 
+    def to(self, device) -> "DeviceDataset":
+        """This split on ``device`` (no copy where it is there already)."""
+        return DeviceDataset(self.images.to(device), self.masks.to(device))
+
     def select(self, indices) -> "DeviceDataset":
         idx = torch.as_tensor(np.asarray(indices), dtype=torch.long, device=self.device)
         return DeviceDataset(self.images[idx], self.masks[idx])

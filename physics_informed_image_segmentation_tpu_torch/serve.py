@@ -24,7 +24,6 @@ implementation's own.  A Flax ``.msgpack`` file cannot be read here.
 
 from __future__ import annotations
 
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -94,14 +93,7 @@ class Predictor:
         self.batch_size = batch_size
         self.image_size = tuple(image_size)
 
-        path = Path(checkpoint_path)
-        if path.suffix == ".msgpack":
-            raise ValueError(
-                f"{path} is a Flax msgpack checkpoint, which PyTorch cannot read; convert it "
-                "with physics_informed_image_segmentation_tpu/utils/torch_interop.py::"
-                "export_torch_state_dict of the JAX package and torch.save the result as a .pth"
-            )
-        self.params = load_params(path)
+        self.params = load_params(checkpoint_path)  # a .msgpack file raises ValueError
 
     @property
     def params(self):

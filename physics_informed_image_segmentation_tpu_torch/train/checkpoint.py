@@ -40,7 +40,14 @@ def save_params(model: torch.nn.Module, path) -> Path:
 
 def load_params(path, model: Optional[torch.nn.Module] = None):
     """Load a ``.pth`` state dict; with ``model``, load it into the model
-    (strictly) and return the model."""
+    (strictly) and return the model.  A Flax ``.msgpack`` file raises
+    ``ValueError``."""
+    if Path(path).suffix == ".msgpack":
+        raise ValueError(
+            f"{path} is a Flax msgpack checkpoint, which PyTorch cannot read; convert it "
+            "with physics_informed_image_segmentation_tpu/utils/torch_interop.py::"
+            "export_torch_state_dict of the JAX package and torch.save the result as a .pth"
+        )
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
     if model is None:
         return state_dict

@@ -14,7 +14,7 @@ from typing import Dict, List
 
 import numpy as np
 
-__all__ = ["EPOCH_CSV_FIELDS", "save_metrics_to_csv", "save_test_metrics"]
+__all__ = ["EPOCH_CSV_FIELDS", "save_metrics_to_csv", "save_rows_to_csv", "save_test_metrics"]
 
 EPOCH_CSV_FIELDS = [
     "epoch",
@@ -47,6 +47,34 @@ def save_metrics_to_csv(metrics: List[Dict], csv_path) -> None:
         writer = csv.DictWriter(f, fieldnames=EPOCH_CSV_FIELDS, extrasaction="ignore")
         writer.writeheader()
         writer.writerows(metrics)
+
+
+def _csv_cell(value) -> str:
+    """A value as pandas' ``to_csv`` writes it: NaN and None empty,
+    booleans ``True``/``False``, floats as the shortest text that reads
+    back to the same value of their type."""
+    if value is None:
+        return ""
+    if isinstance(value, (bool, np.bool_)):
+        return str(bool(value))
+    if isinstance(value, (float, np.floating)):
+        return "" if np.isnan(value) else str(value)
+    return str(value)
+
+
+def save_rows_to_csv(rows: List[Dict], csv_path) -> Path:
+    """Write dict rows (one column per key of the first row) as
+    ``pandas.DataFrame(rows).to_csv(csv_path, index=False)`` writes them.
+    A first key ``""`` gives the unnamed index column of a frame written
+    with its index."""
+    csv_path = Path(csv_path)
+    csv_path.parent.mkdir(parents=True, exist_ok=True)
+    fieldnames = list(rows[0]) if rows else []
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(fieldnames)
+        writer.writerows([_csv_cell(row[k]) for k in fieldnames] for row in rows)
+    return csv_path
 
 
 def save_test_metrics(

@@ -233,10 +233,9 @@ def train(
         if test_dir.exists() and test_json.exists():
             test_data = load_device_dataset(test_dir, test_json, device)
     else:
-        train_data = DeviceDataset(train_data.images.to(device), train_data.masks.to(device))
-        val_data = DeviceDataset(val_data.images.to(device), val_data.masks.to(device))
+        train_data, val_data = train_data.to(device), val_data.to(device)
         if test_data is not None:
-            test_data = DeviceDataset(test_data.images.to(device), test_data.masks.to(device))
+            test_data = test_data.to(device)
 
     if train_fraction is not None:
         if verbose:

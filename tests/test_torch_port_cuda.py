@@ -1,8 +1,8 @@
 """PyTorch port on the card: the fused physics-sums CUDA kernel (K1), the
 fused AdamW kernel (K2), the halo-padded physics kernel (K3) and the 3x3
 convolution kernels (K4) against their plain versions, and the Stage II
-objective, the train step, the halo physics loss and the Predictor on the
-card.
+objective, the train step, the halo physics loss, the Predictor and a
+three-stage ablation variant on the card.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these tests skip on a
 machine without a GPU.  Run them on the card with
@@ -19,6 +19,7 @@ float32 and round once, so they are within one bf16 rounding (rtol 2^-7,
 atol 1e-2).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -573,3 +574,40 @@ def test_predictor_on_the_card(cuda, tmp_path):
     assert abs(probs - ref.permute(0, 2, 3, 1).cpu().numpy()).max() <= 1e-5
     dev = p.predict_device(torch.as_tensor(images[:4], device=cuda))
     assert dev.is_cuda and abs(dev.cpu().numpy() - probs[:4]).max() <= 1e-5
+
+
+def test_three_stage_ablation_variant_on_the_card(cuda, tmp_path):
+    """Base 8, 64x64, bf16: K1 runs in Stage II alone, forward on every
+    train and validation batch, backward on every train step."""
+    import json
+
+    from physics_informed_image_segmentation_tpu_torch.data import DeviceDataset, make_blobs
+    from physics_informed_image_segmentation_tpu_torch.experiments import (
+        AblationConfig,
+        run_ablation_variant,
+    )
+
+    images, masks = make_blobs(28, 64, 64, seed=3)
+    cut = lambda a, b: DeviceDataset.from_numpy(images[a:b], masks[a:b], "cuda")
+    data = {"train": cut(0, 12), "val": cut(12, 20), "in_dist": cut(20, 24),
+            "out_dist": cut(24, 28)}
+    cfg = AblationConfig("C3 Three", "card", use_pde=True, use_three_stage=True,
+                         stage1_epochs=2, stage2_epochs=2)
+    K.reset_launch_counts()
+    res = run_ablation_variant(cfg, datasets=data, batch_size=4, stage1_epochs=2,
+                               stage2_epochs=2, early_stopping_patience=5,
+                               ablation_folder=tmp_path, base_channels=8)
+    steps, val_batches = 2 * 3, 2 * 2  # two Stage II epochs of 3 steps and 2 val batches
+    assert K.launch_counts == {"physics_sums_fwd": steps + val_batches,
+                               "physics_sums_bwd": steps}
+    assert set(res["stage_comparison"]) == {"stage1_vs_stage2", "stage1_vs_stage3",
+                                            "stage2_vs_stage3"}
+    for key in ("in_dist_metrics", "pde_out_dist_metrics", "baseline_in_dist_metrics"):
+        dice = np.asarray(res[key]["dice_scores"])
+        assert dice.shape == (4,) and np.isfinite(dice).all()
+    # as JSON text: a Hausdorff distance of an empty prediction is NaN
+    saved = json.loads((tmp_path / "c3_three_results.json").read_text())
+    assert json.dumps(saved, sort_keys=True) == json.dumps(res, sort_keys=True)
+    for name in ("c3_three_baseline_after_stage1.pth", "c3_three_after_pde_stage2.pth",
+                 "c3_three_after_stage3.pth"):
+        assert (tmp_path / name).exists()

@@ -137,20 +137,43 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 def test_port_runs_without_jax_pil_matplotlib_pandas(tmp_path):
-    """Import the port and train on the CPU with those modules made unimportable."""
+    """Import the port, train, run a two-variant ablation study and compare
+    two checkpoints on the CPU with those modules made unimportable."""
     script = textwrap.dedent(f"""
         import sys
-        for name in {FORBIDDEN + ("PIL", "matplotlib", "pandas")!r}:
-            sys.modules[name] = None  # any import of these now raises ImportError
+
+        class Blocked:  # any import of these now raises ImportError
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {FORBIDDEN + ("PIL", "matplotlib", "pandas")!r}:
+                    raise ImportError(f"{{name}} is blocked")
+
+        # (a finder, not None in sys.modules: SciPy reads sys.modules["jax"]
+        # to tell whether an array is a JAX array)
+        sys.meta_path.insert(0, Blocked())
         sys.path.insert(0, {str(REPO)!r})
+        from pathlib import Path
         import physics_informed_image_segmentation_tpu_torch as port
         from physics_informed_image_segmentation_tpu_torch.data import DeviceDataset, make_blobs
+        from physics_informed_image_segmentation_tpu_torch.experiments import (
+            AblationConfig, evaluate_and_compare, run_ablation_study)
         im, ms = make_blobs(4, 16, 16, seed=0)
         d = DeviceDataset.from_numpy(im, ms, "cpu")
         port.train(stage1_epochs=1, stage2_epochs=1, batch_size=4, base_channels=2,
                    precision="f32", make_plots=False, verbose=False, device="cpu",
                    train_data=d, val_data=d, output_dir={str(tmp_path)!r},
                    models_dir={str(tmp_path)!r})
+        variants = [AblationConfig("M.0 Baseline", "d", use_two_stage=False),
+                    AblationConfig("M.1 Full", "d", use_pde=True)]
+        study = run_ablation_study("MINI", variants, datasets=dict(
+            train=d, val=d, in_dist=d, out_dist=d), stage1_epochs=1, stage2_epochs=1,
+            batch_size=4, base_channels=2, precision="f32", output_dir={str(tmp_path)!r},
+            device="cpu")
+        folder = Path(study["ablation_folder"])
+        evaluate_and_compare(folder / "m.1_full_baseline_after_stage1.pth",
+                             folder / "m.1_full_after_pde_stage2.pth", None, None,
+                             test_data=d, base_channels=2, output_dir=folder / "cmp",
+                             device="cpu")
+        assert len(list((folder / "cmp").iterdir())) == 3
         loaded = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
                   and sys.modules[m] is not None]
         print("LOADED", loaded)
