@@ -845,6 +845,286 @@ def drive_experiments(smi: str, device: str = "cuda", base_channels: int = 64,
             "evaluate_and_compare_s": compare_s, "run_ablation_cli_s": cli_s, "card": smi}
 
 
+# The batched sweep (experiments/sweep.py).  K1 against the plain physics
+# on the sweep path: the batched code with physics_backend="cuda" against
+# "torch", float32 without TF32 and with deterministic cuDNN; the physics
+# sums (rtol 1e-5 apart) are the only difference, and two epochs carry it
+# into the histories: rtol 1e-4.  The stack against the serial variant
+# runner: float32, dropout 0, S1's lr of 1e-4, patience 3, up to eight
+# Stage II epochs of three steps (the members stop at the fourth).  A
+# convolution over stacked weights rounds differently from one model's,
+# and AdamW's normalised step turns that rounding into up to a fraction of
+# the learning rate wherever a gradient is near 0, so: the stop epochs
+# equal; the stage rows' losses rtol 1e-4 and their thresholded scores
+# atol 1e-3 (a few of 128x128 pixels); each member's parameters within 5%
+# of its own Stage II movement, max |serial - Stage I| (a member whose
+# gradient was dropped misses by all of it, one frozen a step early or
+# late by about a twelfth).  S1's members 0 and 4 end within that rounding of each
+# other in their parameters, so the parameters cannot tell the two apart;
+# their pde_loss columns can (a = 0.3 against 0.7): each batched member's
+# must lie further than 10 times the rows' rtol from the other serial
+# member's, so that losses routed to the wrong member would fail.
+SWEEP_HISTORY_RTOL = 1e-4
+SWEEP_ROWS_RTOL = 1e-4
+SWEEP_SCORE_ATOL = 1e-3
+SWEEP_SERIAL_REL = 5e-2
+SWEEP_TIMING_EPOCHS = 4  # 80 images at batch 8: 40 Stage II steps a side and turn
+
+
+@contextlib.contextmanager
+def dropout_off(*modules):
+    """Build the U-Nets of ``modules`` (which import ``UNet`` by name)
+    without dropout."""
+    from physics_informed_image_segmentation_tpu_torch.models import UNet
+
+    saved = [m.UNet for m in modules]
+    for m in modules:
+        m.UNet = lambda **kw: UNet(**{**kw, "dropout": 0.0})
+    try:
+        yield
+    finally:
+        for m, unet in zip(modules, saved):
+            m.UNet = unet
+
+
+def drive_sweep(smi: str) -> dict:
+    """The batched sensitivity sweep on the card: S1's five members through
+    ``run_batched_study`` at full width (base 64, 128x128, batch 8, bf16,
+    80 training images so that S1's 10% is one batch; Stage I one epoch,
+    Stage II two) with K1's launch counts on the sweep path; the batched
+    Stage II against the five serial Stage II runs, timed in paired turns
+    over 40 steps a side, with the peak device memory of each; at base 8 in
+    float32 the sweep with K1 against the plain physics, and members 0 and
+    4 against the serial variant runner; ``run_ablation --ablation S1
+    --batched`` on a synthetic COCO layout."""
+    from physics_informed_image_segmentation_tpu_torch import run_ablation as ablation_cli
+    from physics_informed_image_segmentation_tpu_torch.data import (
+        DeviceDataset, fold_seed, make_blobs, subset_fraction_indices, write_synthetic_coco)
+    from physics_informed_image_segmentation_tpu_torch.experiments import (
+        ablation, create_ablation_loss_config, run_batched_study, studies, sweep,
+        sweep_scalars_from_variants)
+    from physics_informed_image_segmentation_tpu_torch.models import UNet
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
+    from physics_informed_image_segmentation_tpu_torch.train.engine import (
+        create_train_state, make_eval_epoch_fn, make_train_epoch_fn, train_stage)
+
+    size, batch = 128, 8
+    n = {"train": 80, "val": 8, "in_dist": 8, "out_dist": 8}
+    data = {}
+    for i, (split, count) in enumerate(n.items()):
+        images, masks = make_blobs(count, size, size, seed=50 + i)
+        data[split] = DeviceDataset.from_numpy(images, masks, "cuda")
+    s1 = studies.define_ablation_s1()
+    m_count = len(s1)
+    common = dict(batch_size=batch, stage1_epochs=1, stage2_epochs=2, precision="bf16",
+                  base_channels=64, device="cuda")
+
+    scratch = REPO / "build"  # git-ignored
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with quiet():
+            study = run_batched_study("S1", s1, datasets=data, output_dir=tmp / "batched",
+                                      **common)
+        torch.cuda.synchronize()
+        study_s = time.perf_counter() - t0
+        counts = dict(K.launch_counts)
+        steps = -(-int(n["train"] * s1[0].train_fraction) // batch)
+        val_batches = -(-n["val"] // batch)
+        epochs = common["stage2_epochs"]
+        print(f"batched S1 study ({m_count} members, base 64, {size}x{size}, batch {batch}, "
+              f"bf16, Stage I 1 epoch, Stage II {epochs}): {study_s:.2f} s; "
+              f"K1 launches {counts}")
+        want_fwd, want_bwd = m_count * epochs * (steps + val_batches), m_count * epochs * steps
+        check(counts == {"physics_sums_fwd": want_fwd, "physics_sums_bwd": want_bwd},
+              f"expected {want_fwd} / {want_bwd} K1 launches on the sweep path, got {counts}")
+        folder = Path(study["ablation_folder"])
+        results = json.loads(Path(study["results_json"]).read_text())
+        check(results["batched"] is True and set(results) == STUDY_KEYS | {"batched"},
+              f"batched study JSON keys {sorted(results)}")
+        check(study["stop_epochs"] == [epochs] * m_count, f"stop epochs {study['stop_epochs']}")
+        for variant, res in zip(s1, results["results"]):
+            stem = ablation._snake(variant.name)
+            rows = _stage_rows(folder / f"{stem}_stage2_metrics.csv")
+            check(len(rows) == epochs and all(r["train_pde_loss"] > 0 for r in rows),
+                  f"{stem}: Stage II rows {rows}")
+            check((folder / f"{stem}_after_pde_stage2.pth").exists(), f"{stem}: no .pth")
+            for dist in ("in_dist", "out_dist"):
+                _finite_dice(res[f"{dist}_metrics"], n[dist], f"{variant.name} {dist}")
+        _stage_rows(folder / "shared_stage1_metrics.csv")
+
+        # Stage II from the shared Stage I weights on all 80 training
+        # images, batched and as five serial runs, in turns: seconds, and
+        # the peak device memory above what was allocated before
+        init = torch.load(folder / "shared_baseline_after_stage1.pth", weights_only=True)
+        seed = s1[0].seed
+        timing = dict(num_epochs=SWEEP_TIMING_EPOCHS, batch_size=batch, learning_rate=1e-4,
+                      precision="bf16")
+
+        def batched_turn():
+            return sweep.run_batched_sweep(
+                UNet(base_channels=64), init, sweep_scalars_from_variants(s1), data["train"],
+                data["val"], early_stopping_patience=SWEEP_TIMING_EPOCHS,
+                shuffle_seed=fold_seed(seed, 2), seed=seed + 2, device="cuda", **timing)
+
+        def serial_turn():
+            for variant in s1:
+                model = UNet(base_channels=64).cuda()
+                model.load_state_dict(init)
+                cfg = create_ablation_loss_config(variant, "auto")
+                train_stage(create_train_state(model, timing["learning_rate"],
+                                               dropout_seed=seed + 2),
+                            make_train_epoch_fn(cfg, precision="bf16"),
+                            make_eval_epoch_fn(cfg, precision="bf16"), data["train"],
+                            data["val"], batch_size=batch, num_epochs=SWEEP_TIMING_EPOCHS,
+                            stage_name="Stage II (PDE)", shuffle_seed=fold_seed(seed, 2),
+                            early_stopping=None, verbose=False)
+
+        turns = {"batched": [], "serial": []}
+        peak = {}
+        for name in ("batched", "serial", "serial", "batched"):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with quiet():
+                (batched_turn if name == "batched" else serial_turn)()
+            torch.cuda.synchronize()
+            turns[name].append(time.perf_counter() - t0)
+            peak[name] = torch.cuda.max_memory_allocated() - before
+        n_params = sum(p.numel() for p in UNet(base_channels=64).parameters())
+        state = {"batched": 4 * m_count * n_params * 4, "serial": 4 * n_params * 4}
+        stage2 = {"member_steps_a_side": SWEEP_TIMING_EPOCHS * -(-n["train"] // batch) * m_count,
+                  "batched_s": turns["batched"], "serial_sum_s": turns["serial"],
+                  "peak_bytes_above_start": peak,
+                  "param_grad_moment_bytes": state}
+        gib = 2 ** 30
+        print(f"S1 Stage II, base 64, {size}x{size}, bf16, batch {batch}, "
+              f"{SWEEP_TIMING_EPOCHS} epochs of {-(-n['train'] // batch)} steps and "
+              f"{val_batches} validation batch, turns batched/serial/serial/batched: batched "
+              f"{', '.join(f'{t:.3f}' for t in turns['batched'])} s ({m_count} members in "
+              f"one stack), serial {', '.join(f'{t:.3f}' for t in turns['serial'])} s (sum of "
+              f"{m_count} runs); peak device memory above the start: batched "
+              f"{peak['batched'] / gib:.3f} GiB (parameters, gradients and moments "
+              f"{state['batched'] / gib:.3f}), one serial run {peak['serial'] / gib:.3f} GiB "
+              f"({state['serial'] / gib:.3f}); {smi}")
+
+        # float32 at base 8: K1 against the plain physics on the sweep path
+        np.random.seed(seed)
+        train_sub = data["train"].select(subset_fraction_indices(n["train"],
+                                                                 s1[0].train_fraction))
+        f32 = dict(num_epochs=epochs, batch_size=batch, learning_rate=1e-4, precision="f32",
+                   device="cuda")
+        with deterministic_f32():
+            init8 = UNet(base_channels=8, dropout=0.0,
+                         generator=torch.Generator().manual_seed(0)).state_dict()
+            histories = [sweep.run_batched_sweep(
+                UNet(base_channels=8, dropout=0.0), init8, sweep_scalars_from_variants(s1),
+                train_sub, data["val"], physics_backend=backend, **f32)["history"]
+                for backend in ("cuda", "torch")]
+        history_rel = 0.0
+        for key, ref in histories[1].items():
+            np.testing.assert_allclose(histories[0][key], ref, rtol=SWEEP_HISTORY_RTOL,
+                                       err_msg=f"sweep history {key}, K1 against plain")
+            ref = np.asarray(ref, np.float64)
+            diff = np.abs(np.asarray(histories[0][key], np.float64) - ref)
+            history_rel = max(history_rel, float(np.max(diff / np.maximum(np.abs(ref), 1e-30))))
+
+        # float32 at base 8, dropout 0: members 0 and 4 against the serial
+        # variant runner, on 240 training images (S1's 10%: three steps)
+        images, masks = make_blobs(240, size, size, seed=70)
+        data8 = dict(data, train=DeviceDataset.from_numpy(images, masks, "cuda"))
+        small = dict(batch_size=batch, stage1_epochs=1, stage2_epochs=8, learning_rate=1e-4,
+                     early_stopping_patience=3, precision="f32", base_channels=8,
+                     device="cuda")
+        members = (0, m_count - 1)
+        with deterministic_f32(), dropout_off(sweep, ablation), quiet():
+            f32_study = run_batched_study("S1", s1, datasets=data8, output_dir=tmp / "f32",
+                                          **small)
+            serial = {m: ablation.run_ablation_variant(s1[m], datasets=data8,
+                                                       ablation_folder=tmp / "f32_serial",
+                                                       **small)
+                      for m in members}
+        f32_folder = Path(f32_study["ablation_folder"])
+        stage1 = torch.load(f32_folder / "shared_baseline_after_stage1.pth", weights_only=True)
+        stops = [f32_study["stop_epochs"][m] for m in members]
+        rows, serial_rows, gap, move = {}, {}, {}, {}
+        for m in members:
+            stem = ablation._snake(s1[m].name)
+            rows[m] = _stage_rows(f32_folder / f"{stem}_stage2_metrics.csv")
+            serial_rows[m] = _stage_rows(tmp / "f32_serial" / f"{stem}_stage2_metrics.csv")
+            ours = torch.load(f32_folder / f"{stem}_after_pde_stage2.pth", weights_only=True)
+            ref = torch.load(serial[m]["pde_model_path"], weights_only=True)
+            gap[m] = max(float((ours[k] - ref[k]).abs().max()) for k in ref)
+            move[m] = max(float((ref[k] - stage1[k]).abs().max()) for k in ref)
+            check(len(rows[m]) == len(serial_rows[m]) == stops[members.index(m)],
+                  f"member {m}: batched stopped at {stops[members.index(m)]} "
+                  f"({len(rows[m])} rows), serial after {len(serial_rows[m])}")
+
+        def rel(m, other, columns):
+            return max(abs(row[k] - ref_row[k]) / max(abs(ref_row[k]), 1e-30)
+                       for row, ref_row in zip(rows[m], serial_rows[other]) for k in columns)
+
+        scores = [k for k in serial_rows[0][0] if k.endswith("_score")]
+        losses = [k for k in serial_rows[0][0] if k.endswith("_loss")]
+        pde = [k for k in losses if "pde" in k]  # the phase-field energy does not read a
+        loss_rel = max(rel(m, m, losses) for m in members)
+        score_err = max(abs(row[k] - ref_row[k]) for m in members
+                        for row, ref_row in zip(rows[m], serial_rows[m]) for k in scores)
+        cross_rel = min(rel(m, other, pde) for m, other in (members, members[::-1]))
+        print(f"sweep at base 8, f32: K1 against the plain physics, histories max rel diff "
+              f"{history_rel:.3e}; members {members} against serial variants (dropout 0, "
+              f"lr 1e-4, stop epochs {stops} of {small['stage2_epochs']}): losses max rel diff "
+              f"{loss_rel:.3e} (bar {SWEEP_ROWS_RTOL}), scores max abs diff {score_err:.3e} "
+              f"(bar {SWEEP_SCORE_ATOL}), pde columns against the other member's "
+              f"{cross_rel:.3e}; max |dparam| {[f'{gap[m]:.3e}' for m in members]} against "
+              f"their own Stage II movement {[f'{move[m]:.3e}' for m in members]} "
+              f"(bar {SWEEP_SERIAL_REL} of it)")
+        check(min(stops) < small["stage2_epochs"], f"no member stopped early: {stops}")
+        check(loss_rel <= SWEEP_ROWS_RTOL, f"batched losses against serial: {loss_rel:.3e}")
+        check(score_err <= SWEEP_SCORE_ATOL, f"batched scores against serial: {score_err:.3e}")
+        check(cross_rel > 10 * SWEEP_ROWS_RTOL,
+              f"members {members}' pde columns only {cross_rel:.3e} apart")
+        check(all(gap[m] <= SWEEP_SERIAL_REL * move[m] for m in members),
+              f"batched members against serial: max |dparam| {gap} against their movement "
+              f"{move}")
+
+        # run_ablation --batched on a synthetic COCO layout (10% of 20 images)
+        coco = tmp / "coco"
+        counts_cli = {"training": 20, "validation": 4, "in_dist_testing": 4,
+                      "out_dist_testing": 4}
+        for i, (split, count) in enumerate(counts_cli.items()):
+            img_dir, ann = write_synthetic_coco(coco / "tmp" / split, n=count, height=size,
+                                                width=size, seed=60 + i)
+            (coco / "images" / "annotation").mkdir(parents=True, exist_ok=True)
+            shutil.move(str(img_dir), coco / "images" / split)
+            shutil.move(str(ann), coco / "images" / "annotation" / f"{split}_annotation.json")
+        cwd = os.getcwd()
+        os.chdir(coco)
+        try:
+            t0 = time.perf_counter()
+            with quiet():
+                ablation_cli.main(["--ablation", "S1", "--batched", "--stage1-epochs", "1",
+                                   "--stage2-epochs", "1", "--base-channels", "64"])
+            cli_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        (cli_folder,) = (coco / "output" / "ablation").glob("S1_*")
+        cli_json = json.loads((cli_folder / f"ablation_{cli_folder.name}.json").read_text())
+        check(cli_json["batched"] is True and len(cli_json["results"]) == m_count,
+              "run_ablation --batched did not write its batched results")
+        check(len(list(cli_folder.glob("*_after_pde_stage2.pth"))) == m_count,
+              "run_ablation --batched did not write every member's model")
+        print(f"run_ablation --ablation S1 --batched (20 training images): {cli_s:.2f} s")
+    return {"study_s": study_s, "k1_launches": counts, "stage2": stage2,
+            "history_max_rel_diff": history_rel, "serial_stop_epochs": stops,
+            "serial_loss_max_rel_diff": loss_rel, "serial_score_max_abs_diff": score_err,
+            "serial_pde_columns_apart": cross_rel, "serial_max_abs_dparam": gap,
+            "serial_movement": move, "run_ablation_batched_cli_s": cli_s, "card": smi}
+
+
 def unet64(seed: int = 0):
     from physics_informed_image_segmentation_tpu_torch import UNet
 
@@ -1860,6 +2140,8 @@ def main() -> int:
     torch.cuda.synchronize()
     experiments = drive_experiments(smi)
     torch.cuda.synchronize()
+    sweep = drive_sweep(smi)
+    torch.cuda.synchronize()
     k2_counts = drive_adamw_path()
     check_adamw_path_bit_equal()
     check_resume_engine()
@@ -1888,13 +2170,17 @@ def main() -> int:
     kernels = [
         {"name": "physics_sums_fwd", "route": "cuda", "source": src,
          "replaces": "physics_informed_image_segmentation_tpu/ops/pallas_physics.py:245",
-         "launches": counts["physics_sums_fwd"], "max_abs_err": errors["physics_sums_fwd"],
+         "launches": counts["physics_sums_fwd"],
+         "sweep_launches": sweep["k1_launches"]["physics_sums_fwd"],
+         "max_abs_err": errors["physics_sums_fwd"],
          "ms": main_shape["fwd"], "plain_ms": main_shape["plain_fwd"],
          "bound_ms": main_shape["bound_fwd"], "bound_by": main_shape["bound_fwd_by"],
          "library_ms": None},
         {"name": "physics_sums_bwd", "route": "cuda", "source": src,
          "replaces": "physics_informed_image_segmentation_tpu/ops/pallas_physics.py:262",
-         "launches": counts["physics_sums_bwd"], "max_abs_err": errors["physics_sums_bwd"],
+         "launches": counts["physics_sums_bwd"],
+         "sweep_launches": sweep["k1_launches"]["physics_sums_bwd"],
+         "max_abs_err": errors["physics_sums_bwd"],
          "ms": main_shape["bwd"], "plain_ms": main_shape["plain_bwd"],
          "bound_ms": main_shape["bound_bwd"], "bound_by": main_shape["bound_bwd_by"],
          "library_ms": None},
@@ -1954,6 +2240,7 @@ def main() -> int:
     print(json.dumps({"k4_device_us_per_call": k4_times["device_us"],
                       "shape": "(8,128,128,64->64) bf16", "card": smi}))
     print(json.dumps({"experiments": experiments}))
+    print(json.dumps({"sweep": sweep}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

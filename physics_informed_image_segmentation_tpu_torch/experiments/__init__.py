@@ -1,4 +1,5 @@
-"""Experiment orchestration: ablation variants and studies, model comparisons."""
+"""Experiment orchestration: ablation variants and studies, batched sweeps, model
+comparisons."""
 
 from .ablation import (  # noqa: F401
     AblationConfig,
@@ -11,6 +12,11 @@ from .compare import (  # noqa: F401
     load_unet_params,
     make_json_serializable,
     run_repeated_evaluations,
+)
+from .sweep import (  # noqa: F401
+    run_batched_study,
+    run_batched_sweep,
+    sweep_scalars_from_variants,
 )
 from .studies import (  # noqa: F401
     ALL_STUDIES,
@@ -31,6 +37,9 @@ __all__ = [
     "run_repeated_evaluations",
     "load_unet_params",
     "make_json_serializable",
+    "run_batched_sweep",
+    "run_batched_study",
+    "sweep_scalars_from_variants",
     "ALL_STUDIES",
     "define_ablation_r1",
     "define_ablation_r2",

@@ -521,6 +521,64 @@ def run_ablation_variant(
     }, ablation_folder / f"{stem}_results.json")
 
 
+def _write_study_files(folder: Path, ablation_name: str, timestamp: str, variants,
+                       all_results: list, **extra):
+    """A study's own files: the results JSON (``extra`` keys after its name)
+    and the summary CSVs (in-distribution, out-of-distribution, and the
+    legacy one of the in-distribution results), from the per-image metrics
+    of each variant's results.  Returns the JSON's path, the CSVs' paths by
+    suffix, and the in- and out-of-distribution aggregates."""
+    aggregated_in, aggregated_out = {}, {}
+    for variant in variants:
+        runs = [r for r in all_results if r["config"]["name"] == variant.name]
+        for agg, key in ((aggregated_in, "in_dist_metrics"), (aggregated_out, "out_dist_metrics")):
+            values: Dict[str, list] = {m: [] for m in _METRIC_KEYS}
+            for run in runs:
+                if key in run:
+                    for m in _METRIC_KEYS:
+                        values[m].extend(run[key].get(m, []))
+            agg[variant.name] = {
+                m: {
+                    "mean": float(np.nanmean(np.asarray(v, dtype=np.float64))),
+                    "std": 0.0,  # one run per variant
+                    "count": len(v),
+                    "values": list(v),
+                }
+                for m, v in values.items()
+                if v
+            }
+
+    results_json = folder / f"ablation_{ablation_name}_{timestamp}.json"
+    with open(results_json, "w") as f:
+        json.dump(
+            {
+                "ablation_name": ablation_name,
+                **extra,
+                "variants": [v.to_dict() for v in variants],
+                "num_runs": 1,
+                "results": all_results,
+                "aggregated_results": aggregated_in,  # the legacy key
+                "aggregated_results_in_dist": aggregated_in,
+                "aggregated_results_out_dist": aggregated_out,
+            },
+            f,
+            indent=2,
+        )
+
+    summaries = {}
+    for suffix, agg in (("_in_dist", aggregated_in), ("_out_dist", aggregated_out),
+                        ("", aggregated_in)):
+        rows = [
+            {"variant": vn, "metric": m, "mean": s["mean"], "std": s["std"],
+             "count": s["count"]}
+            for vn, metrics in agg.items()
+            for m, s in metrics.items()
+        ]
+        path = folder / f"ablation_{ablation_name}_{timestamp}_summary{suffix}.csv"
+        summaries[suffix] = save_rows_to_csv(rows, path)
+    return results_json, summaries, aggregated_in, aggregated_out
+
+
 def run_ablation_study(
     ablation_name: str,
     variants: List[AblationConfig],
@@ -623,62 +681,8 @@ def run_ablation_study(
             )
         )
 
-    # ----------------------------------------------------- aggregation
-    aggregated_in, aggregated_out = {}, {}
-    for variant in variants:
-        runs = [r for r in all_results if r["config"]["name"] == variant.name]
-        for agg, key in ((aggregated_in, "in_dist_metrics"), (aggregated_out, "out_dist_metrics")):
-            values: Dict[str, list] = {m: [] for m in _METRIC_KEYS}
-            for run in runs:
-                if key in run:
-                    for m in _METRIC_KEYS:
-                        values[m].extend(run[key].get(m, []))
-            agg[variant.name] = {
-                m: {
-                    "mean": float(np.nanmean(np.asarray(v, dtype=np.float64))),
-                    "std": 0.0,  # one run per variant
-                    "count": len(v),
-                    "values": list(v),
-                }
-                for m, v in values.items()
-                if v
-            }
-    aggregated = aggregated_in  # the legacy key holds the in-distribution results
-
-    results_json = ablation_folder / f"ablation_{ablation_name}_{timestamp}.json"
-    with open(results_json, "w") as f:
-        json.dump(
-            {
-                "ablation_name": ablation_name,
-                "variants": [v.to_dict() for v in variants],
-                "num_runs": 1,
-                "results": all_results,
-                "aggregated_results": aggregated,
-                "aggregated_results_in_dist": aggregated_in,
-                "aggregated_results_out_dist": aggregated_out,
-            },
-            f,
-            indent=2,
-        )
-
-    def summary_csv(agg, suffix):
-        rows = [
-            {
-                "variant": vn,
-                "metric": m,
-                "mean": s["mean"],
-                "std": s["std"],
-                "count": s["count"],
-            }
-            for vn, metrics in agg.items()
-            for m, s in metrics.items()
-        ]
-        path = ablation_folder / f"ablation_{ablation_name}_{timestamp}_summary{suffix}.csv"
-        return save_rows_to_csv(rows, path)
-
-    summary_csv_in = summary_csv(aggregated_in, "_in_dist")
-    summary_csv_out = summary_csv(aggregated_out, "_out_dist")
-    summary_csv_legacy = summary_csv(aggregated_in, "")
+    results_json, summaries, aggregated_in, aggregated_out = _write_study_files(
+        ablation_folder, ablation_name, timestamp, variants, all_results)
 
     print(f"\n{'=' * 70}\nABLATION STUDY COMPLETE\n{'=' * 70}")
     print(f"All files saved to: {ablation_folder}")
@@ -696,9 +700,9 @@ def run_ablation_study(
     return {
         "ablation_name": ablation_name,
         "results_json": str(results_json),
-        "summary_csv": str(summary_csv_legacy),
-        "summary_csv_in_dist": str(summary_csv_in),
-        "summary_csv_out_dist": str(summary_csv_out),
-        "aggregated_results": aggregated,
+        "summary_csv": str(summaries[""]),
+        "summary_csv_in_dist": str(summaries["_in_dist"]),
+        "summary_csv_out_dist": str(summaries["_out_dist"]),
+        "aggregated_results": aggregated_in,
         "ablation_folder": str(ablation_folder),
     }

@@ -20,9 +20,10 @@ same activation module at both places.  20,543,809 parameters at
 ``base_channels=64``.
 
 Dropout draws from an explicit ``torch.Generator`` passed to
-``forward``.  The output conv runs in the autocast type and is cast to
-float32 before the output activation, so the probability map (and every
-loss computed on it) is float32.
+``forward``, or takes masks drawn beforehand (:func:`draw_dropout_masks`),
+as a forward under ``torch.func.vmap`` must.  The output conv runs in the
+autocast type and is cast to float32 before the output activation, so the
+probability map (and every loss computed on it) is float32.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["UNet", "DoubleConv", "count_parameters", "ACTIVATIONS"]
+__all__ = ["UNet", "DoubleConv", "count_parameters", "draw_dropout_masks", "ACTIVATIONS"]
 
 ACTIVATIONS = {
     "relu": nn.ReLU,
@@ -71,9 +72,17 @@ def _make_activation(name: str) -> nn.Module:
     return ACTIVATIONS[lower]()
 
 
+def draw_keep(rows: int, channels: int, p: float, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """A (rows, channels, 1, 1) float32 keep mask of ``Dropout2d(p)``,
+    drawn from ``generator``."""
+    keep = torch.empty((rows, channels, 1, 1), device=device, dtype=torch.float32)
+    return keep.bernoulli_(1.0 - p, generator=generator)
+
+
 def spatial_dropout(
     x: torch.Tensor, p: float, generator: Optional[torch.Generator],
-    batch_rows: Optional[tuple[int, int]] = None,
+    batch_rows: Optional[tuple[int, int]] = None, keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Channel-wise dropout (``Dropout2d`` semantics) drawing its mask from
     ``generator``: one keep/drop per (sample, channel), broadcast over H, W.
@@ -82,13 +91,28 @@ def spatial_dropout(
     onwards of a batch of ``global_batch`` sharded over ranks; the mask of
     the whole batch is drawn (every rank's generator is in the same state)
     and this rank's rows are taken, so a sharded run draws the masks of
-    the unsharded one.
+    the unsharded one.  ``keep``: a mask drawn beforehand
+    (:func:`draw_dropout_masks`), used instead of a draw.
     """
-    b = x.shape[0]
-    total, offset = (b, 0) if batch_rows is None else batch_rows
-    keep = torch.empty((total, x.shape[1], 1, 1), device=x.device, dtype=torch.float32)
-    keep.bernoulli_(1.0 - p, generator=generator)
-    return x * (keep[offset:offset + b] / (1.0 - p)).to(x.dtype)
+    if keep is None:
+        b = x.shape[0]
+        total, offset = (b, 0) if batch_rows is None else batch_rows
+        keep = draw_keep(total, x.shape[1], p, generator, x.device)[offset:offset + b]
+    return x * (keep / (1.0 - p)).to(x.dtype)
+
+
+def draw_dropout_masks(model: "UNet", batch: int, generator: Optional[torch.Generator],
+                       device) -> dict:
+    """The keep masks a training forward of ``model`` on ``batch`` images
+    draws from ``generator``, drawn now and in the same order, keyed by
+    block name: ``model(x, dropout_masks=...)`` with them computes what
+    ``model(x, generator)`` would have, and leaves ``generator`` where that
+    forward leaves it."""
+    return {
+        name: draw_keep(batch, blk.conv[0].out_channels, blk.dropout, generator, device)
+        for name, blk in model.named_children()
+        if isinstance(blk, DoubleConv) and blk.dropout > 0
+    }
 
 
 class DoubleConv(nn.Module):
@@ -105,11 +129,12 @@ class DoubleConv(nn.Module):
         self.conv = nn.Sequential(*layers)
         self.dropout = dropout
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None):
         act = self.conv[1]
         x = act(self.conv[0](x))
         if self.dropout > 0 and self.training:
-            x = spatial_dropout(x, self.dropout, generator)
+            x = spatial_dropout(x, self.dropout, generator, keep=keep)
         return act(self.conv[-2](x))
 
 
@@ -189,17 +214,21 @@ class UNet(nn.Module):
             if isinstance(m, PReLU):
                 m.weight.fill_(0.25)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        e1 = self.enc1(x, generator)
-        e2 = self.enc2(self.pool(e1), generator)
-        e3 = self.enc3(self.pool(e2), generator)
-        e4 = self.enc4(self.pool(e3), generator)
-        b = self.bottleneck(self.pool(e4), generator)
-        d4 = self.dec4(torch.cat([self.up4(b), e4], dim=1), generator)
-        d3 = self.dec3(torch.cat([self.up3(d4), e3], dim=1), generator)
-        d2 = self.dec2(torch.cat([self.up2(d3), e2], dim=1), generator)
-        d1 = self.dec1(torch.cat([self.up1(d2), e1], dim=1), generator)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[dict] = None) -> torch.Tensor:
+        """``dropout_masks``: keep masks by block name, drawn beforehand
+        (:func:`draw_dropout_masks`); dropout then draws nothing from
+        ``generator``."""
+        keep = dropout_masks or {}
+        e1 = self.enc1(x, generator, keep.get("enc1"))
+        e2 = self.enc2(self.pool(e1), generator, keep.get("enc2"))
+        e3 = self.enc3(self.pool(e2), generator, keep.get("enc3"))
+        e4 = self.enc4(self.pool(e3), generator, keep.get("enc4"))
+        b = self.bottleneck(self.pool(e4), generator, keep.get("bottleneck"))
+        d4 = self.dec4(torch.cat([self.up4(b), e4], dim=1), generator, keep.get("dec4"))
+        d3 = self.dec3(torch.cat([self.up3(d4), e3], dim=1), generator, keep.get("dec3"))
+        d2 = self.dec2(torch.cat([self.up2(d3), e2], dim=1), generator, keep.get("dec2"))
+        d1 = self.dec1(torch.cat([self.up1(d2), e1], dim=1), generator, keep.get("dec1"))
         out = self.out_conv(d1).float()
         if self.output_activation == "sigmoid":
             return torch.sigmoid(out)

@@ -7,14 +7,16 @@ S1–S3 studies (or ``all``) with the deprecated ``--test-dir`` /
 ``--test-json`` aliasing onto the in-distribution split, and
 ``--resume [STUDY_DIR]`` to continue an interrupted study.
 ``--physics-backend`` takes ``auto`` (the CUDA kernel on the GPU),
-``cuda`` or ``torch``.  ``--batched`` is refused: the batched sweep is
-not in the port yet.
+``cuda`` or ``torch``.  ``--batched`` runs the S1–S3 studies through the
+batched sweep (:func:`.experiments.run_batched_study`: one shared Stage I,
+then every member's Stage II in one stack) and the R studies through the
+serial runner; it does not combine with ``--resume``.
 """
 
 import argparse
 from pathlib import Path
 
-from .experiments import ALL_STUDIES, run_ablation_study
+from .experiments import ALL_STUDIES, run_ablation_study, run_batched_study
 from .utils.device import resolve_device
 
 
@@ -76,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--batched", action="store_true",
-        help="Run S1-S3 sensitivity grids as one batched launch (not in the PyTorch port yet)",
+        help="Run S1-S3 sensitivity grids as one batched stack of members",
     )
     parser.add_argument(
         "--resume", type=str, nargs="?", const="latest", default=None,
@@ -115,9 +117,8 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
 
-    if args.batched:
-        parser.error("--batched: the batched sweep (ROADMAP item P9) is not in the "
-                     "PyTorch port yet; run without --batched for the serial study runner")
+    if args.resume is not None and args.batched:
+        parser.error("--resume applies to the serial study runner, not --batched")
     device = resolve_device(args.device)
 
     in_dist_test_dir = Path(args.in_dist_test_dir).resolve()
@@ -144,14 +145,7 @@ def main(argv=None):
         print(f"Starting Ablation Study: {ablation_name}")
         print(f"{'=' * 70}")
 
-        resume_from = None
-        if args.resume is not None:
-            resume_from = _resume_folder(parser, args, ablation_name)
-            if resume_from is not None:
-                print(f"Resuming study from: {resume_from}")
-        results = run_ablation_study(
-            ablation_name=ablation_name,
-            variants=variants,
+        study_args = dict(
             train_dir=Path(args.train_dir).resolve(),
             train_json=Path(args.train_json).resolve(),
             val_dir=Path(args.val_dir).resolve(),
@@ -169,9 +163,19 @@ def main(argv=None):
             precision=args.precision,
             physics_backend=args.physics_backend,
             base_channels=args.base_channels,
-            resume_from=resume_from,
             device=device,
         )
+        if args.batched and ablation_name in ("S1", "S2", "S3"):
+            results = run_batched_study(ablation_name=ablation_name, variants=variants,
+                                        **study_args)
+        else:
+            resume_from = None
+            if args.resume is not None:
+                resume_from = _resume_folder(parser, args, ablation_name)
+                if resume_from is not None:
+                    print(f"Resuming study from: {resume_from}")
+            results = run_ablation_study(ablation_name=ablation_name, variants=variants,
+                                         resume_from=resume_from, **study_args)
 
         print(f"\nAblation {ablation_name} complete!")
         print(f"Results: {results['results_json']}")

@@ -1,8 +1,8 @@
 """PyTorch port on the card: the fused physics-sums CUDA kernel (K1), the
 fused AdamW kernel (K2), the halo-padded physics kernel (K3) and the 3x3
 convolution kernels (K4) against their plain versions, and the Stage II
-objective, the train step, the halo physics loss, the Predictor and a
-three-stage ablation variant on the card.
+objective, the train step, the halo physics loss, the Predictor, a
+three-stage ablation variant and a batched study on the card.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these tests skip on a
 machine without a GPU.  Run them on the card with
@@ -611,3 +611,37 @@ def test_three_stage_ablation_variant_on_the_card(cuda, tmp_path):
     for name in ("c3_three_baseline_after_stage1.pth", "c3_three_after_pde_stage2.pth",
                  "c3_three_after_stage3.pth"):
         assert (tmp_path / name).exists()
+
+
+def test_batched_study_launches_k1_once_per_member(cuda, tmp_path):
+    """Three S-shaped members at base 8, 64x64, bf16: Stage II runs the
+    stack through vmap and K1 once a member, forward on every train and
+    validation batch, backward on every train step; Stage I and the
+    evaluations launch nothing."""
+    import json
+
+    from physics_informed_image_segmentation_tpu_torch.data import DeviceDataset, make_blobs
+    from physics_informed_image_segmentation_tpu_torch.experiments import (
+        AblationConfig,
+        run_batched_study,
+    )
+
+    images, masks = make_blobs(28, 64, 64, seed=4)
+    cut = lambda a, b: DeviceDataset.from_numpy(images[a:b], masks[a:b], "cuda")
+    data = {"train": cut(0, 12), "val": cut(12, 20), "in_dist": cut(20, 24),
+            "out_dist": cut(24, 28)}
+    members = [AblationConfig(f"CB.{i}", "card", use_pde=True, diffusion_coeff=d)
+               for i, d in enumerate((1.0, 5.0, 10.0))]
+    K.reset_launch_counts()
+    res = run_batched_study("CB", members, datasets=data, batch_size=4, stage1_epochs=1,
+                            stage2_epochs=2, early_stopping_patience=5, output_dir=tmp_path,
+                            base_channels=8)
+    steps, val_batches = 2 * 3, 2 * 2  # two Stage II epochs of 3 steps and 2 val batches
+    assert K.launch_counts == {"physics_sums_fwd": 3 * (steps + val_batches),
+                               "physics_sums_bwd": 3 * steps}
+    assert res["stop_epochs"] == [2, 2, 2]
+    saved = json.loads(open(res["results_json"]).read())
+    assert saved["batched"] is True
+    for member in saved["results"]:
+        dice = np.asarray(member["in_dist_metrics"]["dice_scores"])
+        assert dice.shape == (4,) and np.isfinite(dice).all()

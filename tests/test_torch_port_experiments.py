@@ -466,13 +466,6 @@ def test_clis_end_to_end_on_cpu(tmp_path, monkeypatch, capsys):
     assert "EVALUATION COMPLETE" in capsys.readouterr().out
 
 
-def test_batched_is_refused(capsys):
-    with pytest.raises(SystemExit) as exc:
-        ablation_cli.main(["--ablation", "S1", "--batched", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "P9" in capsys.readouterr().err
-
-
 def test_clis_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without CUDA")

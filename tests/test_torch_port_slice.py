@@ -137,8 +137,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 def test_port_runs_without_jax_pil_matplotlib_pandas(tmp_path):
-    """Import the port, train, run a two-variant ablation study and compare
-    two checkpoints on the CPU with those modules made unimportable."""
+    """Import the port, train, run a two-variant ablation study, compare
+    two checkpoints and run a two-member batched study (the path of
+    ``run_ablation --batched``) on the CPU with those modules made
+    unimportable."""
     script = textwrap.dedent(f"""
         import sys
 
@@ -174,6 +176,17 @@ def test_port_runs_without_jax_pil_matplotlib_pandas(tmp_path):
                              test_data=d, base_channels=2, output_dir=folder / "cmp",
                              device="cpu")
         assert len(list((folder / "cmp").iterdir())) == 3
+        from physics_informed_image_segmentation_tpu_torch import run_ablation
+        from physics_informed_image_segmentation_tpu_torch.experiments import run_batched_study
+        assert run_ablation.run_batched_study is run_batched_study
+        batched = run_batched_study("MB", [AblationConfig("MB.0", "d", use_pde=True),
+                                           AblationConfig("MB.1", "d", use_pde=True,
+                                                          diffusion_coeff=1.0)],
+                                    datasets=dict(train=d, val=d, in_dist=d, out_dist=d),
+                                    stage1_epochs=1, stage2_epochs=1, batch_size=4,
+                                    base_channels=2, precision="f32",
+                                    output_dir={str(tmp_path)!r}, device="cpu")
+        assert Path(batched["summary_csv"]).exists()
         loaded = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}
                   and sys.modules[m] is not None]
         print("LOADED", loaded)
