@@ -64,7 +64,19 @@ final result line):
    bf16, 3 steps) with K3's launch counts and its peak memory; one f32
    halo step at 128x128 against the unsharded K1 step; one
    data-parallel epoch of ``make_sharded_epoch_fns`` through
-   ``train_stage`` with K1's launch counts;
+   ``train_stage`` with K1's launch counts; space-sharded epochs
+   (``make_sharded_epoch_fns(spatial=True)`` through ``train_stage``: base
+   64, 512x512, batch 2, bf16, 2 epochs of 2 steps and a validation batch)
+   with K3's launch counts (none of K1) and the peak memory, then
+   ``parallel/spatial_check.py`` (base 64, 128x128, f32, dropout 0) against
+   the unsharded epochs on the same plan;
+   then the streamed path (``HostDataset`` → ``batch_iterator`` →
+   ``chunk_batches`` → ``prefetch_to_device`` with pinned memory and a side
+   stream → ``make_train_chunk_fn``, "pallas_adamw", base 64, bf16) with
+   K1's and K2's launch counts (no K2 launch on a padding step), its f32
+   run against the resident epoch on the same order, streamed against
+   resident img/s in turns (``StepTimer``, ``ThroughputMeter``), and
+   ``d4_augment`` on the card's generator;
    then the conv probe (``utils/conv_probe.py``) at full width with K4's
    launch counts;
 10. time the kernels, their plain versions, the library's calls (fused
@@ -1131,10 +1143,10 @@ def unet64(seed: int = 0):
     return UNet(base_channels=64, generator=torch.Generator().manual_seed(seed)).cuda()
 
 
-def blob_data(n: int, seed: int):
+def blob_data(n: int, seed: int, size: int = 128):
     from physics_informed_image_segmentation_tpu_torch.data import DeviceDataset, make_blobs
 
-    images, masks = make_blobs(n, 128, 128, seed=seed)
+    images, masks = make_blobs(n, size, size, seed=seed)
     return DeviceDataset.from_numpy(images, masks, "cuda")
 
 
@@ -1835,6 +1847,72 @@ def drive_dp_epoch() -> dict:
     return counts
 
 
+def drive_spatial_epochs(smi: str) -> dict:
+    """Space-sharded epochs at world 1: ``train_stage`` with
+    ``make_sharded_epoch_fns(spatial=True)`` at base 64, 512x512, batch 2,
+    bf16, 2 epochs of 2 steps and 1 validation batch, with K3's launches
+    (forward once a train and validation batch, backward once a train
+    step; K1 none) and the peak memory; then ``parallel/spatial_check.py``
+    at base 64, 128x128, f32, dropout 0: the same stage against the
+    unsharded epochs (K1) on the same plan."""
+    from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K1
+    from physics_informed_image_segmentation_tpu_torch.parallel import (
+        make_mesh, make_sharded_epoch_fns, shard_train_state, spatial_check,
+    )
+    from physics_informed_image_segmentation_tpu_torch.train import (
+        LossConfig, create_train_state, train_stage,
+    )
+
+    mesh = make_mesh()
+    size, batch, steps, epochs = 512, 2, 2, 2
+    train_data = blob_data(batch * steps, seed=20, size=size)
+    val_data = blob_data(batch, seed=21, size=size)
+    state = shard_train_state(create_train_state(unet64(), 1e-5), mesh)
+    fns = make_sharded_epoch_fns(LossConfig(**STAGE2), mesh, spatial=True, precision="bf16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    K1.reset_launch_counts()
+    K3.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, _, _, rows = train_stage(state, *fns, train_data, val_data, batch_size=batch,
+                                    num_epochs=epochs, stage_name="Stage II", shuffle_seed=0,
+                                    verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {**K1.launch_counts, **K3.launch_counts}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"space-sharded epochs at world 1 (make_sharded_epoch_fns(spatial=True), train_stage, "
+          f"base 64, {size}x{size}, batch {batch}, bf16, {epochs} epochs of {steps} steps + 1 "
+          f"val batch): {seconds:.2f} s; launches {counts}; peak memory {peak / 2**30:.3f} GiB "
+          f"({(peak - start_bytes) / 2**30:.3f} above the start); train loss "
+          f"{[round(r['train_loss'], 6) for r in rows]}, val BF1 "
+          f"{[round(r['val_boundary_f1_score'], 4) for r in rows]}; {smi}")
+    check(counts["padded_physics_fwd"] == epochs * (steps + 1)
+          and counts["padded_physics_bwd"] == epochs * steps,
+          f"K3 launches on the space-sharded epochs: {counts}")
+    check(counts["physics_sums_fwd"] == 0 and counts["physics_sums_bwd"] == 0,
+          f"K1 launched on the space-sharded epochs: {counts}")
+    check(all(np.isfinite(v) for r in rows for v in r.values()), f"non-finite metrics: {rows}")
+
+    with deterministic_f32():
+        res = spatial_check.run(128, 64, 1, batch=8, n_train=12, n_val=8, epochs=1)
+    print(f"space-sharded epoch vs unsharded (K1) on the same plan, base 64, 128x128, f32, "
+          f"dropout 0, 2 steps + 1 val batch: loss columns {res['loss_max_rel_diff']:.3e} rel "
+          f"(bar {spatial_check.LOSS_RTOL}), IoU/BF1 {res['score_max_abs_diff']:.3e} (bar "
+          f"{spatial_check.SCORE_ATOL}), Dice {res['dice_max_abs_diff']:.3e} (bar "
+          f"{spatial_check.DICE_ATOL}), max|d params| {res['max_abs_dparam']:.3e} against a "
+          f"movement of {res['movement']:.3e} (bar {spatial_check.PARAM_REL} of it; L2 "
+          f"ratio {res['dparam_l2_over_movement_l2']:.3e}); the first batch's gradient, "
+          f"sharded against whole: largest relative L2 {res['first_step_grad_max_rel_l2']:.3e} "
+          f"({res['first_step_grad_worst']}); whole with the forward in two halves of the "
+          f"batch: {res['halves_grad_max_rel_l2']:.3e} ({res['halves_grad_worst']})")
+    check(res["ok"], "the space-sharded epoch differs from the unsharded one beyond its bars")
+    return {"counts": counts, "seconds": seconds, "peak_bytes": peak,
+            "peak_above_start_bytes": peak - start_bytes, "vs_unsharded": res}
+
+
 def drive_parallel_paths(smi: str) -> dict:
     """Phases of the data×space path, in a world of one on NCCL."""
     import torch.distributed as dist
@@ -1849,9 +1927,167 @@ def drive_parallel_paths(smi: str) -> dict:
             out = {"halo": drive_halo_path(smi)}
             out["vs_unsharded"] = check_halo_step_against_unsharded()
             out["dp_counts"] = drive_dp_epoch()
+            out["spatial"] = drive_spatial_epochs(smi)
         finally:
             dist.destroy_process_group()
     return out
+
+
+STREAM_N, STREAM_BATCH, STREAM_K = 40, 8, 4  # 5 steps: a chunk of 4, then 1 + 3 padding
+
+
+def drive_streaming(smi: str) -> dict:
+    """The streamed path at full width: ``HostDataset`` of ``make_blobs``
+    (128x128) → ``batch_iterator`` (batch 8) → ``chunk_batches(k=4)`` (the
+    last chunk padded) → ``prefetch_to_device`` (pinned memory, side stream)
+    → ``make_train_chunk_fn`` with the Stage II objective and
+    "pallas_adamw", base 64, bf16: K1 once each way a real step, K2 once a
+    real step and never on a padding step.  Then f32, dropout 0: the
+    streamed chunks against the resident epoch on the same order; streamed
+    against resident img/s in turns; D4 codes drawn on the card."""
+    from physics_informed_image_segmentation_tpu_torch import UNet
+    from physics_informed_image_segmentation_tpu_torch.data import (
+        DeviceDataset, HostDataset, batch_iterator, chunk_batches, d4_augment, make_blobs,
+        prefetch_to_device,
+    )
+    from physics_informed_image_segmentation_tpu_torch.data.augment import d4_apply
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K1
+    from physics_informed_image_segmentation_tpu_torch.train import (
+        LossConfig, create_train_state, make_train_chunk_fn, make_train_epoch_fn,
+        make_train_step_fn,
+    )
+    from physics_informed_image_segmentation_tpu_torch.train import adamw_kernel as K2
+    from physics_informed_image_segmentation_tpu_torch.utils.profiling import (
+        StepTimer, ThroughputMeter,
+    )
+
+    cfg = LossConfig(**STAGE2)
+    images, masks = make_blobs(STREAM_N, 128, 128, seed=30)
+    host = HostDataset(STREAM_N, images, masks)
+    real = -(-STREAM_N // STREAM_BATCH)
+
+    def streamed(state, chunk_fn, data=host, timer=None):
+        outs = []
+        batches = batch_iterator(data, STREAM_BATCH, shuffle=True, seed=0, epoch=0)
+        for xs, ys, vs in prefetch_to_device(chunk_batches(batches, STREAM_K), device="cuda"):
+            if timer is None:
+                state, out = chunk_fn(state, xs, ys, vs)
+            else:
+                with timer.step():
+                    state, out = chunk_fn(state, xs, ys, vs)
+                    timer.sync(out)
+            outs.append(out)
+        return state, outs
+
+    def resident_plan(n):
+        order = np.arange(n)
+        np.random.default_rng(np.random.SeedSequence([0, 0])).shuffle(order)
+        nb = -(-n // STREAM_BATCH)
+        pad = nb * STREAM_BATCH - n
+        idx = np.concatenate([order, np.zeros(pad, order.dtype)]).reshape(nb, STREAM_BATCH)
+        valid = np.concatenate([np.ones(n), np.zeros(pad)]).reshape(nb, STREAM_BATCH)
+        return (torch.tensor(idx, device="cuda"),
+                torch.tensor(valid, dtype=torch.float32, device="cuda"))
+
+    # launches at bf16
+    state = create_train_state(unet64(), 1e-5, optimizer="pallas_adamw")
+    K1.reset_launch_counts()
+    K2.reset_launch_counts()
+    state, outs = streamed(state, make_train_chunk_fn(cfg, precision="bf16"))
+    torch.cuda.synchronize()
+    counts = {**K1.launch_counts, **K2.launch_counts}
+    losses = torch.cat([o["loss"] for o in outs]).cpu()
+    n_col = torch.cat([o["n"] for o in outs]).cpu()
+    print(f"streamed chunks (HostDataset → batch_iterator → chunk_batches(k={STREAM_K}) → "
+          f"prefetch_to_device → make_train_chunk_fn, pallas_adamw, base 64, 128x128, batch "
+          f"{STREAM_BATCH}, bf16): {len(outs)} chunks, {real} real steps and "
+          f"{len(outs) * STREAM_K - real} padding steps; launches {counts}; step losses "
+          f"{[round(float(v), 6) for v in losses]}")
+    check(counts["adamw"] == real and state.step == real,
+          f"expected {real} K2 launches and steps (none on padding), got {counts}, {state.step}")
+    check(counts["physics_sums_fwd"] == real and counts["physics_sums_bwd"] == real,
+          f"K1 launches on the streamed path: {counts}")
+    check(bool(torch.isfinite(losses[:real]).all()) and bool(torch.isnan(losses[real:]).all())
+          and float(n_col[real:].sum()) == 0.0, "streamed step metrics malformed")
+
+    # f32, dropout 0: streamed chunks against the resident epoch on the same order
+    data = DeviceDataset.from_numpy(images, masks, "cuda")
+    with deterministic_f32():
+        final = {}
+        start = None
+        for name in ("streamed", "resident"):
+            model = UNet(base_channels=64, dropout=0.0,
+                         generator=torch.Generator().manual_seed(0)).cuda()
+            if start is None:
+                start = [p.detach().clone() for p in model.parameters()]
+            st = create_train_state(model, 1e-4, optimizer="pallas_adamw")
+            if name == "streamed":
+                st, outs = streamed(st, make_train_chunk_fn(cfg, precision="f32"))
+                loss = float(torch.cat([o["loss"] for o in outs])[:real].double().mean())
+            else:
+                idx, valid = resident_plan(STREAM_N)
+                st, res = make_train_epoch_fn(cfg, precision="f32")(
+                    st, data.images, data.masks, idx, valid)
+                loss = res["loss"]
+            final[name] = ([p.detach().clone() for p in model.parameters()], loss)
+    (ps, ls), (pr, lr_) = final["streamed"], final["resident"]
+    gap = max(float((a - b).abs().max()) for a, b in zip(ps, pr))
+    move = max(float((a - b).abs().max()) for a, b in zip(pr, start))
+    print(f"streamed vs resident epoch, f32, dropout 0, same order: losses {ls!r} / {lr_!r}, "
+          f"max|d params| {gap:.3e} against a movement of {move:.3e}")
+    check(abs(ls - lr_) <= 1e-5 * abs(lr_) and gap <= 1e-3 * move,
+          "the streamed chunks differ from the resident epoch beyond rounding")
+
+    # img/s of streamed chunks and of the resident epoch, in turns A/B/B/A
+    n_t = 64
+    t_images, t_masks = make_blobs(n_t, 128, 128, seed=31)
+    t_host = HostDataset(n_t, t_images, t_masks)
+    t_data = DeviceDataset.from_numpy(t_images, t_masks, "cuda")
+    idx, valid = resident_plan(n_t)
+    chunk_fn = make_train_chunk_fn(cfg, precision="bf16")
+    epoch_fn = make_train_epoch_fn(cfg, precision="bf16")
+    state = create_train_state(unet64(), 1e-5, optimizer="pallas_adamw")
+    rates = {"streamed": [], "resident": []}
+    timer = StepTimer(warmup=1)
+    for turn in ("warm-up", "streamed", "resident", "resident", "streamed"):
+        torch.cuda.synchronize()
+        meter = ThroughputMeter()
+        meter.start()
+        if turn in ("warm-up", "streamed"):
+            state, _ = streamed(state, chunk_fn, t_host, timer if turn == "streamed" else None)
+        if turn in ("warm-up", "resident"):
+            state, _ = epoch_fn(state, t_data.images, t_data.masks, idx, valid)
+        torch.cuda.synchronize()
+        meter.add(n_t)
+        if turn != "warm-up":
+            rates[turn].append(meter.images_per_sec)
+    print(f"img/s, turns streamed / resident / resident / streamed ({n_t} images, batch "
+          f"{STREAM_BATCH}, chunks of {STREAM_K}, pallas_adamw, base 64, 128x128, bf16): "
+          f"streamed {[round(r, 1) for r in rates['streamed']]}, resident "
+          f"{[round(r, 1) for r in rates['resident']]}; a streamed chunk p50 "
+          f"{timer.p50_ms:.2f} ms, p99 {timer.p99_ms:.2f} ms over {len(timer.times)}; {smi}")
+
+    # D4 codes drawn on the card's generator, the same to image and mask
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    saved = gen.get_state()
+    x, y = data.images[:STREAM_BATCH], data.masks[:STREAM_BATCH]
+    xa, ya = d4_augment(gen, x, y)
+    again = torch.Generator(device="cuda")
+    again.set_state(saved)
+    codes = torch.randint(0, 8, (STREAM_BATCH,), generator=again, device="cuda").tolist()
+    for b, c in enumerate(codes):
+        check(torch.equal(xa[b:b + 1], d4_apply(x[b:b + 1], c))
+              and torch.equal(ya[b:b + 1], d4_apply(y[b:b + 1], c)),
+              f"d4_augment sample {b}: not code {c} on image and mask")
+    step = make_train_step_fn(cfg, precision="bf16", augment=d4_augment)
+    state, out = step(state, x, y, torch.ones(STREAM_BATCH, device="cuda"))
+    check(bool(torch.isfinite(out["loss"])), "augmented step loss not finite")
+    print(f"d4_augment on the card: codes {codes}, image and mask alike; a step with "
+          f"augment=d4_augment trained")
+    return {"counts": counts, "stream_vs_resident": {"dloss": abs(ls - lr_), "dparams": gap,
+                                                     "movement": move},
+            "img_per_s": rates, "chunk_ms_p50": timer.p50_ms, "card": smi}
 
 
 def time_cuda(fn, warmup=5, reps=30) -> float:
@@ -2151,6 +2387,7 @@ def main() -> int:
     check_k3_against_k1()
     errors.update(check_k4())
     parallel = drive_parallel_paths(smi)
+    streaming = drive_streaming(smi)
     probe = drive_probe()
     times = time_kernels()
     k3_times = time_k3()
@@ -2172,6 +2409,8 @@ def main() -> int:
          "replaces": "physics_informed_image_segmentation_tpu/ops/pallas_physics.py:245",
          "launches": counts["physics_sums_fwd"],
          "sweep_launches": sweep["k1_launches"]["physics_sums_fwd"],
+         "streaming_launches": streaming["counts"]["physics_sums_fwd"],
+         "spatial_epochs_launches": parallel["spatial"]["counts"]["physics_sums_fwd"],
          "max_abs_err": errors["physics_sums_fwd"],
          "ms": main_shape["fwd"], "plain_ms": main_shape["plain_fwd"],
          "bound_ms": main_shape["bound_fwd"], "bound_by": main_shape["bound_fwd_by"],
@@ -2180,13 +2419,16 @@ def main() -> int:
          "replaces": "physics_informed_image_segmentation_tpu/ops/pallas_physics.py:262",
          "launches": counts["physics_sums_bwd"],
          "sweep_launches": sweep["k1_launches"]["physics_sums_bwd"],
+         "streaming_launches": streaming["counts"]["physics_sums_bwd"],
+         "spatial_epochs_launches": parallel["spatial"]["counts"]["physics_sums_bwd"],
          "max_abs_err": errors["physics_sums_bwd"],
          "ms": main_shape["bwd"], "plain_ms": main_shape["plain_bwd"],
          "bound_ms": main_shape["bound_bwd"], "bound_by": main_shape["bound_bwd_by"],
          "library_ms": None},
         {"name": "adamw", "route": "cuda", "source": f"{PKG}/csrc/adamw.cu",
          "replaces": "physics_informed_image_segmentation_tpu/train/pallas_optim.py:118",
-         "launches": k2_counts["adamw"], "max_abs_err": errors["adamw"],
+         "launches": k2_counts["adamw"], "streaming_launches": streaming["counts"]["adamw"],
+         "max_abs_err": errors["adamw"],
          "ms": k2_times["kernel"], "plain_ms": k2_times["plain"],
          "bound_ms": k2_times["bound"], "bound_by": k2_times["bound_by"],
          "library_ms": k2_times["library"]},
@@ -2200,6 +2442,8 @@ def main() -> int:
             "replaces": "physics_informed_image_segmentation_tpu/ops/pallas_physics.py:"
                         + ("390" if direction == "fwd" else "405"),
             "launches": halo_counts[f"padded_physics_{direction}"],
+            "spatial_epochs_launches":
+                parallel["spatial"]["counts"][f"padded_physics_{direction}"],
             "max_abs_err": errors[f"padded_physics_{direction}"],
             "ms": mp[direction], "plain_ms": mp[f"plain_{direction}"],
             "bound_ms": mp[f"bound_{direction}"], "bound_by": mp[f"bound_{direction}_by"],
@@ -2241,6 +2485,10 @@ def main() -> int:
                       "shape": "(8,128,128,64->64) bf16", "card": smi}))
     print(json.dumps({"experiments": experiments}))
     print(json.dumps({"sweep": sweep}))
+    spatial = parallel["spatial"]
+    print(json.dumps({"spatial_epochs": {k: spatial[k] for k in (
+        "counts", "seconds", "peak_bytes", "peak_above_start_bytes", "vs_unsharded")},
+        "streaming": streaming, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,13 +27,22 @@ __all__ = [
     "dice_score_per_sample",
     "iou_score",
     "iou_score_per_sample",
+    "overlap_sums",
+    "dice_from_sums",
+    "iou_from_sums",
     "extract_boundaries",
+    "boundary_counts",
+    "boundary_f1_from_counts",
     "boundary_f1_per_sample",
     "hausdorff_distance_np",
     "extract_boundaries_np",
+    "THRESHOLD",
+    "BOUNDARY_TOLERANCE",
 ]
 
 _SMOOTH = 1e-6
+THRESHOLD = 0.5
+BOUNDARY_TOLERANCE = 2
 
 
 def dice_score(
@@ -64,6 +73,32 @@ def _flatten_per_sample(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
 
 
+def overlap_sums(
+    predictions: torch.Tensor,
+    targets: torch.Tensor,
+    threshold: float = 0.5,
+) -> torch.Tensor:
+    """Per-sample ``[Σp·t, Σp, Σt]`` of the thresholded prediction, shape
+    ``(B, 3)``: what per-sample Dice and IoU are made of.  Sums of a
+    sample's bands add up to the sample's sums."""
+    p = _flatten_per_sample((predictions > threshold).to(predictions.dtype))
+    t = _flatten_per_sample(targets)
+    return torch.stack([torch.sum(p * t, dim=1), torch.sum(p, dim=1), torch.sum(t, dim=1)], 1)
+
+
+def dice_from_sums(sums: torch.Tensor, smooth: float = _SMOOTH) -> torch.Tensor:
+    """Per-sample Dice from :func:`overlap_sums`."""
+    intersection, sp, st = sums.unbind(-1)
+    return (2.0 * intersection + smooth) / (sp + st + smooth)
+
+
+def iou_from_sums(sums: torch.Tensor, smooth: float = _SMOOTH) -> torch.Tensor:
+    """Per-sample IoU from :func:`overlap_sums`."""
+    intersection, sp, st = sums.unbind(-1)
+    union = sp + st - intersection
+    return (intersection + smooth) / (union + smooth)
+
+
 def dice_score_per_sample(
     predictions: torch.Tensor,
     targets: torch.Tensor,
@@ -71,10 +106,7 @@ def dice_score_per_sample(
     smooth: float = _SMOOTH,
 ) -> torch.Tensor:
     """Per-sample thresholded Dice, shape ``(B,)``."""
-    p = _flatten_per_sample((predictions > threshold).to(predictions.dtype))
-    t = _flatten_per_sample(targets)
-    intersection = torch.sum(p * t, dim=1)
-    return (2.0 * intersection + smooth) / (torch.sum(p, dim=1) + torch.sum(t, dim=1) + smooth)
+    return dice_from_sums(overlap_sums(predictions, targets, threshold), smooth)
 
 
 def iou_score(
@@ -101,11 +133,7 @@ def iou_score_per_sample(
     smooth: float = _SMOOTH,
 ) -> torch.Tensor:
     """Per-sample IoU, shape ``(B,)``."""
-    p = _flatten_per_sample((predictions > threshold).to(predictions.dtype))
-    t = _flatten_per_sample(targets)
-    intersection = torch.sum(p * t, dim=1)
-    union = torch.sum(p, dim=1) + torch.sum(t, dim=1) - intersection
-    return (intersection + smooth) / (union + smooth)
+    return iou_from_sums(overlap_sums(predictions, targets, threshold), smooth)
 
 
 def _erode(mask: torch.Tensor) -> torch.Tensor:
@@ -146,11 +174,53 @@ def _dilate_disk(mask: torch.Tensor, tolerance: int) -> torch.Tensor:
     return out
 
 
+def boundary_counts(
+    pred_bin: torch.Tensor,
+    targets: torch.Tensor,
+    tolerance: int = BOUNDARY_TOLERANCE,
+    halo: int = 0,
+) -> torch.Tensor:
+    """Per-sample Boundary-F1 counts ``[Σ pb·near(tb), Σ pb, Σ tb·near(pb),
+    Σ tb]``, shape ``(B, 4)``, of a binary prediction and target (B, H, W);
+    pb, tb are their boundaries and ``near`` the disk dilation by
+    ``tolerance`` (``near(x) = x`` at tolerance 0).
+
+    ``halo``: the first and last ``halo`` rows are another band's rows (or
+    background at the image's edge): boundaries and dilations read them,
+    the counts leave them out.  A band with ``tolerance + 1`` such rows on
+    each side gives the counts of its own rows exactly, so the counts of a
+    sample's bands add up to the sample's.
+    """
+    pred_b = extract_boundaries(pred_bin)
+    target_b = extract_boundaries(targets)
+    near_target = _dilate_disk(target_b, tolerance)
+    near_pred = _dilate_disk(pred_b, tolerance)
+    rows = slice(halo, pred_bin.shape[-2] - halo)
+    dims = tuple(range(1, pred_bin.dim()))
+    return torch.stack([
+        torch.sum((pred_b * near_target)[..., rows, :], dim=dims),
+        torch.sum(pred_b[..., rows, :], dim=dims),
+        torch.sum((target_b * near_pred)[..., rows, :], dim=dims),
+        torch.sum(target_b[..., rows, :], dim=dims),
+    ], 1)
+
+
+def boundary_f1_from_counts(counts: torch.Tensor, tolerance: int = BOUNDARY_TOLERANCE,
+                            smooth: float = _SMOOTH) -> torch.Tensor:
+    """Per-sample Boundary-F1 from :func:`boundary_counts`."""
+    pn, p, tn, t = counts.unbind(-1)
+    if tolerance > 0:
+        precision = (pn + smooth) / (p + smooth)
+        recall = (tn + smooth) / (t + smooth)
+        return (2.0 * precision * recall + smooth) / (precision + recall + smooth)
+    return (2.0 * pn + smooth) / (p + t + smooth)
+
+
 def boundary_f1_per_sample(
     predictions: torch.Tensor,
     targets: torch.Tensor,
-    threshold: float = 0.5,
-    tolerance: int = 2,
+    threshold: float = THRESHOLD,
+    tolerance: int = BOUNDARY_TOLERANCE,
     smooth: float = _SMOOTH,
 ) -> torch.Tensor:
     """Per-sample Boundary-F1 with pixel tolerance, shape ``(B,)``:
@@ -158,24 +228,8 @@ def boundary_f1_per_sample(
     ``tolerance`` of a target boundary pixel, recall vice versa, combined
     as ``(2PR + s) / (P + R + s)``."""
     pred_bin = (predictions > threshold).to(predictions.dtype)
-    pred_b = extract_boundaries(pred_bin)
-    target_b = extract_boundaries(targets)
-
-    dims = tuple(range(1, predictions.dim()))
-    if tolerance > 0:
-        near_target = _dilate_disk(target_b, tolerance)
-        near_pred = _dilate_disk(pred_b, tolerance)
-        precision = (torch.sum(pred_b * near_target, dim=dims) + smooth) / (
-            torch.sum(pred_b, dim=dims) + smooth
-        )
-        recall = (torch.sum(target_b * near_pred, dim=dims) + smooth) / (
-            torch.sum(target_b, dim=dims) + smooth
-        )
-        return (2.0 * precision * recall + smooth) / (precision + recall + smooth)
-    intersection = torch.sum(pred_b * target_b, dim=dims)
-    return (2.0 * intersection + smooth) / (
-        torch.sum(pred_b, dim=dims) + torch.sum(target_b, dim=dims) + smooth
-    )
+    counts = boundary_counts(pred_bin, targets, tolerance)
+    return boundary_f1_from_counts(counts, tolerance, smooth)
 
 
 def extract_boundaries_np(mask: np.ndarray) -> np.ndarray:

@@ -47,6 +47,7 @@ from .losses import bce_elementwise
 __all__ = [
     "FusedPhysicsSums",
     "TilePlan",
+    "dice_bce_sums",
     "fused_physics_sums",
     "fused_physics_sums_reference",
     "fused_physics_sums_bwd_tiled",
@@ -250,17 +251,23 @@ class FusedPhysicsSums(torch.autograd.Function):
         return (du if ctx.needs_input_grad[0] else None), dt, None, None, None, None, None
 
 
-def fused_physics_sums_reference(u, t, m, D, a, eps, use_reaction=True) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same ``(B, 6)`` sums,
-    differentiated by autograd."""
+def dice_bce_sums(u, t, m) -> torch.Tensor:
+    """Per-image ``[Σu·t, Σu, Σt, Σbce]`` (B, 4), masked by ``m`` (B, 1): the
+    kernel's first four sums in plain PyTorch."""
     mm = m.reshape(-1, 1, 1)
     u = u * mm
     t = t * mm
     dims = (1, 2)
-    inter = torch.sum(u * t, dims)
-    su = torch.sum(u, dims)
-    st = torch.sum(t, dims)
-    bce = torch.sum(bce_elementwise(u, t), dims)
+    return torch.stack([torch.sum(u * t, dims), torch.sum(u, dims), torch.sum(t, dims),
+                        torch.sum(bce_elementwise(u, t), dims)], dim=1)
+
+
+def fused_physics_sums_reference(u, t, m, D, a, eps, use_reaction=True) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same ``(B, 6)`` sums,
+    differentiated by autograd."""
+    dice_bce = dice_bce_sums(u, t, m)
+    u = u * m.reshape(-1, 1, 1)
+    dims = (1, 2)
     r = D * pde.laplacian(u)
     if use_reaction:
         r = r + pde.reaction_term(u, a)
@@ -271,7 +278,7 @@ def fused_physics_sums_reference(u, t, m, D, a, eps, use_reaction=True) -> torch
         (eps / 2.0) * (gx * gx + gy * gy) + (1.0 / eps) * (u * u) * (one_minus * one_minus),
         dims,
     )
-    return torch.stack([inter, su, st, bce, rd, pf], dim=1)
+    return torch.cat([dice_bce, torch.stack([rd, pf], dim=1)], dim=1)
 
 
 def _mirror(i: torch.Tensor, n: int) -> torch.Tensor:
@@ -412,6 +419,7 @@ def fused_loss_components(
     need_phase_field: bool = True,
     reduce=None,
     plain: bool = False,
+    physics_sums=None,
 ) -> dict:
     """Loss components from the fused sums; the same contract as the plain
     component computation of :func:`..train.objective.make_loss_and_components`.
@@ -423,7 +431,10 @@ def fused_loss_components(
     the ranks (:func:`..parallel.mesh.all_sum`), applied to the six totals
     and the valid-pixel count before the ratios are formed, so every rank
     gets the loss of the global batch.  ``plain`` takes the plain version
-    on any device.
+    on any device.  ``physics_sums(u, m)``: the per-image ``[Σr², Σpf]``
+    (B, 2), masked by ``m``, from elsewhere (a band of a space-sharded
+    field, whose stencils need the neighbouring bands' rows); the Dice and
+    BCE sums are then :func:`dice_bce_sums`.
     """
     if pred.dim() == 4:
         pred = pred[..., 0]
@@ -435,7 +446,11 @@ def fused_loss_components(
         m = mask.to(torch.float32).reshape(b, -1)[:, :1].contiguous()
 
     u, t = pred.to(torch.float32).contiguous(), target.to(torch.float32).contiguous()
-    if plain:
+    if physics_sums is not None:
+        physics = (physics_sums(u, m) if need_pde or need_phase_field
+                   else u.new_zeros((b, 2)))
+        sums = torch.cat([dice_bce_sums(u, t, m), physics], dim=1)
+    elif plain:
         _check_inputs(u, t, m)
         sums = fused_physics_sums_reference(u, t, m, diffusion_coeff, reaction_threshold,
                                             epsilon, use_reaction_term)

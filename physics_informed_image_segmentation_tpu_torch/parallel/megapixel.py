@@ -87,9 +87,12 @@ def main(argv=None) -> int:
     ap.add_argument("height", nargs="?", type=int, default=1024)
     ap.add_argument("base_channels", nargs="?", type=int, default=64)
     ap.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--init-method", default=None,
+                    help="a file:// or tcp:// URL, with RANK and WORLD_SIZE in the environment "
+                         "(parallel/launch.py passes one)")
     args = ap.parse_args(argv)
 
-    initialize_distributed(device=args.device)
+    initialize_distributed(args.init_method, device=args.device)
     try:
         res = run(args.height, args.base_channels)
         if res["device"] != "cpu":

@@ -59,7 +59,9 @@ def initialize_distributed(
     ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``); with
     none of those set either, the process is a world of one (an in-memory
     store, no port, no file).  ``init_method`` is a ``tcp://`` or
-    ``file://`` URL, given with ``world_size`` and ``rank``.
+    ``file://`` URL, given with ``world_size`` and ``rank``, which default
+    to ``WORLD_SIZE`` and ``RANK`` of the environment (:mod:`.launch` sets
+    them and passes a ``file://`` store).
 
     ``backend`` defaults to NCCL when ``device`` is CUDA (the default) and
     gloo when it is the CPU.  On CUDA the rank's device is set to
@@ -79,6 +81,10 @@ def initialize_distributed(
         return
     if init_method is not None:
         kw["init_method"] = init_method
+        if world_size is None and "WORLD_SIZE" in os.environ:
+            world_size = int(os.environ["WORLD_SIZE"])
+        if rank is None and "RANK" in os.environ:
+            rank = int(os.environ["RANK"])
     if world_size is not None:
         kw["world_size"] = world_size
     if rank is not None:

@@ -18,7 +18,23 @@ share, and the collectives are written out:
   single-process update to its replica of the train state.
 
 ``make_sharded_epoch_fns`` reuses the engine's epoch functions through
-their ``shard`` hook (:class:`MeshShard`).
+their ``shard`` hook (:class:`MeshShard`).  With ``spatial``, a band's
+objective and metrics need rows of the bands beside it:
+
+* Dice and BCE: the masked sums of the band, all-summed before the ratio;
+* the physics: the band with a one-pixel ghost ring from the exchange
+  (:func:`.halo.halo_physics_sums`), whose per-image sums K3 takes on
+  CUDA tensors (its plain version on CPU tensors), times the sample mask,
+  all-summed and divided by ``Σvalid · H · W`` of the global batch;
+* per-sample Dice and IoU: each sample's three sums all-summed over
+  ``space`` before its ratio;
+* Boundary-F1: the band with ``tolerance + 1`` rows of its neighbours
+  (zero rows at the image's edges): the erosion reads one row, the disk
+  dilation ``tolerance``; its four counts are taken over the band's own
+  rows and all-summed over ``space``, so they are the unsharded counts.
+
+The per-sample values are then gathered over ``data`` in plan order, and
+every rank sums them as one process would.
 """
 
 from __future__ import annotations
@@ -26,13 +42,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops import losses as L
+from ..ops import metrics as M
 from ..ops.padded_physics_kernel import padded_physics_sums, padded_physics_sums_reference
 from ..train.engine import TrainState, make_eval_epoch_fn, make_train_epoch_fn
 from ..train.objective import LossConfig, make_loss_and_components
-from .halo import physics_means
+from .halo import halo_exchange_pad, halo_physics_sums
 from .mesh import (
-    DATA_AXIS,
+    SPACE_AXIS,
     Mesh,
     all_reduce_grads,
     all_sum,
@@ -42,6 +58,7 @@ from .mesh import (
 from .spatial_unet import sharded_forward_nhwc
 
 __all__ = [
+    "MeshShard",
     "make_sharded_epoch_fns",
     "shard_train_state",
     "make_sharded_train_step",
@@ -70,6 +87,45 @@ class MeshShard:
 
     def reduce_grads(self, grads):
         return all_reduce_grads(grads)
+
+    def loss_fn(self, cfg: LossConfig, sums_fn=None):
+        """The objective of the global batch from this rank's block.  With
+        ``spatial``, a band's physics sums come from ``sums_fn`` on its
+        ghost-ringed block: by default K3 (its plain version on CPU
+        tensors), the plain stencils with ``cfg.backend == "torch"``."""
+        if not self.spatial:
+            return make_loss_and_components(cfg, self.all_sum)
+        if sums_fn is None:
+            sums_fn = (padded_physics_sums_reference if cfg.backend == "torch"
+                       else padded_physics_sums)
+
+        def physics_sums(u, m):
+            return halo_physics_sums(u, self.mesh, cfg.diffusion_coeff, cfg.reaction_threshold,
+                                     cfg.epsilon, cfg.use_reaction_term, sums_fn, valid=m)
+
+        return make_loss_and_components(cfg, self.all_sum, physics_sums)
+
+    def sample_metrics(self, p2, t2) -> list:
+        """Per-sample Dice, IoU and Boundary-F1 of the global batch, three
+        (B,) tensors in plan order, from this rank's (B_loc, H_loc, W)
+        block of predictions and targets."""
+        pred_bin = (p2 > M.THRESHOLD).to(p2.dtype)
+        if self.spatial:
+            k = M.BOUNDARY_TOLERANCE + 1
+            both = halo_exchange_pad(torch.stack([pred_bin, t2]), self.mesh, "zero", rows=k)
+            counts = M.boundary_counts(both[0], both[1], halo=k)
+        else:
+            counts = M.boundary_counts(pred_bin, t2)
+        sums = torch.cat([M.overlap_sums(p2, t2), counts], dim=1)
+        if self.spatial:
+            sums = all_sum(sums, self.mesh, (SPACE_AXIS,))
+        per = torch.stack([M.dice_from_sums(sums[:, :3]), M.iou_from_sums(sums[:, :3]),
+                           M.boundary_f1_from_counts(sums[:, 3:])], dim=1)
+        if self.mesh.data > 1:
+            parts = [torch.empty_like(per) for _ in range(self.mesh.data)]
+            dist.all_gather(parts, per, group=self.mesh.data_group)
+            per = torch.cat(parts)
+        return [c.contiguous() for c in per.unbind(1)]
 
 
 @torch.no_grad()
@@ -102,22 +158,18 @@ def make_sharded_epoch_fns(
     compute_metrics: bool = True,
     precision: str = "f32",
 ):
-    """``(train_epoch_fn, eval_epoch_fn)`` sharded over the mesh's ``data``
-    axis: the signatures and results of :func:`..train.engine.make_train_epoch_fn`
+    """``(train_epoch_fn, eval_epoch_fn)`` sharded over the mesh: the
+    signatures and results of :func:`..train.engine.make_train_epoch_fn`
     and :func:`..train.engine.make_eval_epoch_fn`, a drop-in for
     :func:`..train.engine.train_stage`.  Every rank passes the same
     replicated data and plan and gets the same metrics.
 
-    ``spatial=True`` is not ported yet: Boundary-F1's exact-disk dilation
-    (``ops/metrics.py``) reads as far as its tolerance radius across a
-    band's edge, so a space-sharded metric needs a halo that wide.
+    Samples are sharded over ``data``; ``spatial=True`` also shards image
+    height over ``space`` (see the module docstring): a band must have a
+    height divisible by 16 (the U-Net's poolings) and at least
+    Boundary-F1's tolerance + 1 rows, else the epoch raises ``ValueError``.
     """
-    if spatial:
-        raise NotImplementedError(
-            "space-sharded epochs are not ported yet: Boundary-F1's disk dilation "
-            "needs a halo as wide as its tolerance radius"
-        )
-    shard = MeshShard(mesh, spatial=False)
+    shard = MeshShard(mesh, spatial=spatial)
     kw = dict(compute_metrics=compute_metrics, precision=precision, shard=shard)
     return make_train_epoch_fn(loss_cfg, **kw), make_eval_epoch_fn(loss_cfg, **kw)
 
@@ -135,8 +187,9 @@ def make_sharded_train_step(
     rank cuts its share), with the loss of the global batch.
 
     * ``spatial``: image height is sharded over ``space`` too; the U-Net's
-      convolutions exchange one-row halos (:mod:`.spatial_unet`), Dice/BCE
-      are unmasked, and the physics terms run on halo-padded bands;
+      convolutions exchange one-row halos (:mod:`.spatial_unet`), and the
+      objective is :meth:`MeshShard.loss_fn`'s, unmasked: the physics terms
+      run on halo-padded bands;
     * ``halo_physics=True`` (needs ``spatial``): those physics terms take
       the fused padded-block op, K3 on CUDA
       (:func:`.halo.halo_physics_loss_pallas`); without it, its plain
@@ -147,36 +200,14 @@ def make_sharded_train_step(
     if halo_physics and not spatial:
         raise ValueError("halo_physics requires spatial=True")
     shard = MeshShard(mesh, spatial)
-
-    if spatial:
-        sums_fn = padded_physics_sums if halo_physics else padded_physics_sums_reference
-
-        def loss_fn(pred, y):
-            p, t = pred.to(torch.float32), y.to(torch.float32)
-            n = torch.tensor(float(p.numel()), dtype=torch.float32, device=p.device)
-            inter, sp, st, bce, n = shard.all_sum(torch.stack([
-                torch.sum(p * t), torch.sum(p), torch.sum(t),
-                torch.sum(L.bce_elementwise(p, t)), n,
-            ])).unbind()
-            dice = (2.0 * inter + loss_cfg.smooth) / (sp + st + loss_cfg.smooth)
-            total = loss_cfg.dice_weight * (1.0 - dice) + loss_cfg.bce_weight * (bce / n)
-            if loss_cfg.uses_physics:
-                rd, pf = physics_means(
-                    pred[..., 0], mesh, loss_cfg.diffusion_coeff, loss_cfg.reaction_threshold,
-                    loss_cfg.epsilon, loss_cfg.use_reaction_term, DATA_AXIS, sums_fn)
-                total = total + loss_cfg.pde_weight * rd + loss_cfg.phase_field_weight * pf
-            return total
-    else:
-        components = make_loss_and_components(loss_cfg, shard.all_sum)
-
-        def loss_fn(pred, y):
-            return components(pred, y)[0]
+    sums_fn = padded_physics_sums if halo_physics else padded_physics_sums_reference
+    components = shard.loss_fn(loss_cfg, sums_fn)
 
     def step(state: TrainState, x, y):
         x, y = shard.local(x), shard.local(y)
         state.model.train()
         pred = shard.forward(state.model, x, precision, state.dropout_generator)
-        loss = loss_fn(pred, y)
+        loss = components(pred, y)[0]
         grads = torch.autograd.grad(loss, state.optimizer.params)
         state.optimizer.step(shard.reduce_grads(grads))
         return state, loss.detach()

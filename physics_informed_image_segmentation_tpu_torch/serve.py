@@ -29,25 +29,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .data.augment import d4_apply as _d4_apply
+from .data.augment import d4_invert as _d4_invert
 from .models import UNet
 from .train.checkpoint import load_params
 from .utils.device import resolve_device, set_precision
 
 __all__ = ["Predictor", "load_image_for_inference"]
-
-
-def _d4_apply(x: torch.Tensor, code: int) -> torch.Tensor:
-    """Apply dihedral symmetry ``code`` (0-3 rot90, 4-7 rot90+flip) to NHWC."""
-    k, flip = code % 4, code >= 4
-    xt = torch.rot90(x, k, dims=(1, 2))
-    return xt.flip(2) if flip else xt
-
-
-def _d4_invert(x: torch.Tensor, code: int) -> torch.Tensor:
-    k, flip = code % 4, code >= 4
-    if flip:
-        x = x.flip(2)
-    return torch.rot90(x, -k, dims=(1, 2))
 
 
 def load_image_for_inference(path, image_size=(128, 128)) -> np.ndarray:

@@ -14,9 +14,12 @@ from .engine import (  # noqa: F401
     TrainState,
     create_train_state,
     make_eval_epoch_fn,
+    make_train_chunk_fn,
     make_train_epoch_fn,
+    make_train_epochs_fn,
     make_train_step_fn,
     train_stage,
+    tree_params,
 )
 from .evaluation import evaluate_model, evaluate_on_dataset, validate  # noqa: F401
 from .loop import load_device_dataset, train  # noqa: F401
@@ -28,8 +31,11 @@ __all__ = [
     "train_stage",
     "TrainState",
     "create_train_state",
+    "tree_params",
     "make_train_step_fn",
     "make_train_epoch_fn",
+    "make_train_epochs_fn",
+    "make_train_chunk_fn",
     "make_eval_epoch_fn",
     "EarlyStopping",
     "LossConfig",

@@ -20,6 +20,10 @@ A stage can write full train-state checkpoints and resume from one: each
 epoch's shuffle is drawn from a generator seeded by (shuffle seed,
 epoch), and the dropout generator's state travels in the checkpoint, so a
 resumed stage is bit-identical to an uninterrupted one.
+
+Besides the epoch: :func:`make_train_epochs_fn` (E epochs a call, one host
+sync), :func:`make_train_chunk_fn` (K streamed batches a call, see
+:mod:`..data.streaming`) and the ``augment=`` hook (:mod:`..data.augment`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops import metrics as M
@@ -41,9 +46,12 @@ from .optim import AdamW, FlatAdamW, GroupedAdamW, LowPrecisionAdamW
 __all__ = [
     "TrainState",
     "create_train_state",
+    "tree_params",
     "forward_nhwc",
     "make_train_step_fn",
     "make_train_epoch_fn",
+    "make_train_epochs_fn",
+    "make_train_chunk_fn",
     "make_eval_epoch_fn",
     "EarlyStopping",
     "train_stage",
@@ -55,11 +63,14 @@ _LOSS_KEYS = ("loss", "dice_loss", "bce_loss", "pde_loss", "phase_field_loss")
 @dataclass
 class TrainState:
     """The model (holding the parameters), its optimizer and the dropout
-    generator (on the model's device)."""
+    generator (on the model's device); ``flat_params``, with
+    ``create_train_state(flat=True)``, the one buffer the parameters are
+    views of."""
 
     model: torch.nn.Module
     optimizer: AdamW
     dropout_generator: torch.Generator
+    flat_params: Optional[torch.Tensor] = None
 
     @property
     def step(self) -> int:
@@ -84,6 +95,7 @@ def create_train_state(
     *,
     optimizer: str = "adamw",
     dropout_seed: int = 0,
+    flat: bool = False,
 ) -> TrainState:
     """A fresh optimizer over ``model``'s parameters, as each stage starts one.
 
@@ -96,6 +108,12 @@ def create_train_state(
       launch a step on the GPU (:mod:`.adamw_kernel`; bit-identical);
     * ``"bf16m_adamw"`` / ``"bf16mv_adamw"``: m / m and v stored in
       bfloat16, computed in float32 (an approximation).
+
+    ``flat=True`` stores the parameters as views into one float32 buffer
+    (``state.flat_params``), in ``model.parameters()``'s order: the
+    ``state_dict`` keys stay, every optimizer updates the views in place,
+    and trajectories are bit-identical to ``flat=False``.  Moving the
+    model (``.to``) afterwards would give it new tensors and undo it.
     """
     if optimizer not in _OPTIMIZERS:
         raise ValueError(
@@ -106,8 +124,28 @@ def create_train_state(
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
     generator.manual_seed(dropout_seed)
+    flat_params = _flatten_parameters(model) if flat else None
     opt = _OPTIMIZERS[optimizer](list(model.parameters()), learning_rate, weight_decay)
-    return TrainState(model, opt, generator)
+    return TrainState(model, opt, generator, flat_params)
+
+
+@torch.no_grad()
+def _flatten_parameters(model: torch.nn.Module) -> torch.Tensor:
+    """Make ``model``'s parameters views into one new buffer, values kept."""
+    params = list(model.parameters())
+    if any(p.dtype != torch.float32 for p in params):
+        raise ValueError("flat=True needs float32 parameters")
+    buf = torch.cat([p.reshape(-1) for p in params])
+    off = 0
+    for p in params:
+        p.data = buf[off:off + p.numel()].view(p.shape)
+        off += p.numel()
+    return buf
+
+
+def tree_params(state: TrainState) -> dict:
+    """The parameters by ``state_dict`` name, whatever the storage mode."""
+    return dict(state.model.named_parameters())
 
 
 def forward_nhwc(model, x: torch.Tensor, precision: str, generator=None) -> torch.Tensor:
@@ -125,20 +163,26 @@ def _sample_mask(valid: torch.Tensor, ndim: int) -> torch.Tensor:
     return valid.reshape((valid.shape[0],) + (1,) * (ndim - 1))
 
 
-def _batch_metrics(pred, target, valid, reduce=None) -> dict:
-    """Per-sample Dice/IoU/Boundary-F1 sums over valid samples (summed over
-    the ranks by ``reduce`` when the batch is sharded)."""
+def _per_sample_metrics(p2, t2) -> list:
+    return [M.dice_score_per_sample(p2, t2), M.iou_score_per_sample(p2, t2),
+            M.boundary_f1_per_sample(p2, t2)]
+
+
+def _batch_metrics(pred, target, valid, shard=None) -> dict:
+    """Per-sample Dice/IoU/Boundary-F1 sums over valid samples.  With
+    ``shard``, ``pred`` and ``target`` are this rank's block and ``valid``
+    the global batch's: ``shard.sample_metrics`` gives every sample's
+    values in plan order, so the sums are those of one process."""
     p2 = pred[..., 0] if pred.dim() == 4 else pred
     t2 = target[..., 0] if target.dim() == 4 else target
-    out = {
-        "dice_sum": torch.sum(M.dice_score_per_sample(p2, t2) * valid),
-        "iou_sum": torch.sum(M.iou_score_per_sample(p2, t2) * valid),
-        "bf1_sum": torch.sum(M.boundary_f1_per_sample(p2, t2) * valid),
+    dice, iou, bf1 = (_per_sample_metrics(p2, t2) if shard is None
+                      else shard.sample_metrics(p2, t2))
+    return {
+        "dice_sum": torch.sum(dice * valid),
+        "iou_sum": torch.sum(iou * valid),
+        "bf1_sum": torch.sum(bf1 * valid),
         "n": torch.sum(valid),
     }
-    if reduce is not None:
-        out = dict(zip(out, reduce(torch.stack(list(out.values()))).unbind()))
-    return out
 
 
 def _to_host(outs: list[dict]) -> dict:
@@ -157,7 +201,7 @@ def _per_sample_means(cols: dict, out: dict, dice_key: str) -> None:
 
 
 def make_train_step_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
-                       precision: str = "f32", shard=None):
+                       precision: str = "f32", shard=None, augment=None):
     """``step(state, x, y, valid) -> (state, out)``: one optimizer step on
     a (B, H, W, 1) batch; ``out`` holds device scalars.
 
@@ -166,16 +210,29 @@ def make_train_step_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
     then the global one, replicated on every rank, and ``shard`` provides
     ``local(x)`` (this rank's share of a batch tensor),
     ``forward(model, x, precision, generator)`` (the model on that share),
-    ``all_sum(t)`` (a differentiable sum over the ranks, applied to the
-    losses' and metrics' sums before any ratio) and ``reduce_grads(grads)``
-    (the gradients summed over the ranks): the losses and metrics are those
-    of the global batch, and every rank applies the global gradient.
+    ``loss_fn(loss_cfg)`` (the objective with its sums added over the
+    ranks before any ratio), ``all_sum(t)`` (a differentiable sum over the
+    ranks), ``sample_metrics(pred, target)`` (every
+    sample's Dice, IoU and Boundary-F1, in plan order) and
+    ``reduce_grads(grads)`` (the gradients summed over the ranks): the
+    losses and metrics are those of the global batch, and every rank
+    applies the global gradient.
+
+    ``augment(generator, x, y) -> (x, y)`` (:mod:`..data.augment`) transforms
+    the global batch before the forward, with codes drawn from the train
+    state's dropout generator: a checkpoint carries the augmentation stream
+    with the dropout stream, so a resumed run draws what an uninterrupted
+    one does.  The JAX package draws them from ``fold_in(dropout_key, 1)``,
+    which a ``torch.Generator`` cannot reproduce: trajectories with
+    augmentation are compared with JAX's by their transforms, not draws.
     """
-    reduce = None if shard is None else shard.all_sum
-    loss_fn = make_loss_and_components(loss_cfg, reduce)
+    loss_fn = make_loss_and_components(loss_cfg) if shard is None else shard.loss_fn(loss_cfg)
     forward = forward_nhwc if shard is None else shard.forward
 
     def step(state: TrainState, x, y, valid):
+        if augment is not None:
+            x, y = augment(state.dropout_generator, x, y)
+        valid_all = valid
         if shard is not None:
             x, y, valid = shard.local(x), shard.local(y), shard.local(valid)
         state.model.train()
@@ -187,32 +244,117 @@ def make_train_step_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
         state.optimizer.step(grads)
         out = {"loss": total.detach(), **{k: v.detach() for k, v in comps.items()}}
         if compute_metrics:
-            out.update(_batch_metrics(pred.detach(), y, valid, reduce))
+            out.update(_batch_metrics(pred.detach(), y, valid_all, shard))
         return state, out
 
     return step
 
 
-def make_train_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
-                        precision: str = "f32", shard=None):
-    """``epoch_fn(state, images, masks, idx, valid) -> (state, metrics)``
-    with ``metrics`` host floats; ``idx``/``valid`` are (nb, B).  ``shard``
-    as in :func:`make_train_step_fn`."""
-    step = make_train_step_fn(loss_cfg, compute_metrics=compute_metrics, precision=precision,
-                              shard=shard)
+def _epoch_results(cols: dict, compute_metrics: bool) -> dict:
+    results = {k: float(cols[k].mean()) for k in _LOSS_KEYS}
+    if compute_metrics:
+        _per_sample_means(cols, results, "dice_score")
+    return results
 
-    def epoch_fn(state: TrainState, images, masks, idx, valid):
+
+def _make_steps_fn(loss_cfg, compute_metrics, precision, shard, augment):
+    """``steps(state, images, masks, idx, valid) -> (state, outs)``: one
+    epoch's steps, their outputs left on the device."""
+    step = make_train_step_fn(loss_cfg, compute_metrics=compute_metrics, precision=precision,
+                              shard=shard, augment=augment)
+
+    def steps(state, images, masks, idx, valid):
         outs = []
         for b in range(idx.shape[0]):
             state, out = step(state, images[idx[b]], masks[idx[b]], valid[b])
             outs.append(out)
-        cols = _to_host(outs)
-        results = {k: float(cols[k].mean()) for k in _LOSS_KEYS}
-        if compute_metrics:
-            _per_sample_means(cols, results, "dice_score")
-        return state, results
+        return state, outs
+
+    return steps
+
+
+def make_train_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
+                        precision: str = "f32", shard=None, augment=None):
+    """``epoch_fn(state, images, masks, idx, valid) -> (state, metrics)``
+    with ``metrics`` host floats; ``idx``/``valid`` are (nb, B).  ``shard``
+    and ``augment`` as in :func:`make_train_step_fn`."""
+    steps = _make_steps_fn(loss_cfg, compute_metrics, precision, shard, augment)
+
+    def epoch_fn(state: TrainState, images, masks, idx, valid):
+        state, outs = steps(state, images, masks, idx, valid)
+        return state, _epoch_results(_to_host(outs), compute_metrics)
 
     return epoch_fn
+
+
+def make_train_epochs_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
+                         precision: str = "f32", shard=None, augment=None):
+    """``fn(state, images, masks, idx, valid) -> (state, metrics)``: E
+    epochs in one call, ``idx``/``valid`` of shape (E, nb, B) (one
+    :func:`..data.pipeline.epoch_batch_indices` plan per epoch, stacked),
+    each metric a float64 numpy array of E values, equal to those of E
+    calls of :func:`make_train_epoch_fn`.  One host sync for all E epochs:
+    for fixed-budget stages and benchmarks, where no host decision (early
+    stopping) falls between epochs."""
+    steps = _make_steps_fn(loss_cfg, compute_metrics, precision, shard, augment)
+
+    def epochs_fn(state: TrainState, images, masks, idx, valid):
+        outs = []
+        for e in range(idx.shape[0]):
+            state, epoch_outs = steps(state, images, masks, idx[e], valid[e])
+            outs += epoch_outs
+        cols = _to_host(outs)
+        nb = idx.shape[1]
+        per_epoch = [_epoch_results({k: v[e * nb:(e + 1) * nb] for k, v in cols.items()},
+                                    compute_metrics) for e in range(idx.shape[0])]
+        return state, {k: np.array([r[k] for r in per_epoch]) for k in per_epoch[0]}
+
+    return epochs_fn
+
+
+def make_train_chunk_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
+                        precision: str = "f32", shard=None):
+    """``chunk(state, xs, ys, valids) -> (state, metrics)``: K streamed
+    batches in one call, ``xs``/``ys`` (K, B, H, W, 1) and ``valids`` (K, B)
+    (:func:`..data.streaming.chunk_batches`), each step that of
+    :func:`make_train_step_fn`; ``metrics`` holds device tensors with a
+    leading axis K.
+
+    A step whose ``valid`` is all zero (a chunk's padding) is skipped: the
+    parameters, moments, step count and dropout generator are left as they
+    were (no optimizer launch either), so the chunk equals stepping its
+    real batches one by one.  Its metrics are the JAX package's for such a
+    step: NaN for the loss and the enabled means, a Dice loss of 0, and 0
+    for the sums and ``n``.  ``valids`` is read on the host once a chunk.
+    """
+    step = make_train_step_fn(loss_cfg, compute_metrics=compute_metrics, precision=precision,
+                              shard=shard)
+
+    def chunk(state: TrainState, xs, ys, valids):
+        real = (valids.sum(dim=1) > 0).tolist()
+        outs = []
+        for k, is_real in enumerate(real):
+            if is_real:
+                state, out = step(state, xs[k], ys[k], valids[k])
+            else:
+                out = _padding_step_out(loss_cfg, valids.device, compute_metrics)
+            outs.append(out)
+        return state, {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+
+    return chunk
+
+
+def _padding_step_out(loss_cfg: LossConfig, device, compute_metrics: bool) -> dict:
+    """What the objective gives a batch without a valid sample: Dice's
+    ratio s/s, so a Dice loss of 0; its means 0/0; disabled terms 0."""
+    nan = torch.full((), float("nan"), device=device)
+    zero = torch.zeros((), device=device)
+    out = {"loss": nan, "dice_loss": zero, "bce_loss": nan,
+           "pde_loss": nan if loss_cfg.pde_weight > 0 else zero,
+           "phase_field_loss": nan if loss_cfg.phase_field_weight > 0 else zero}
+    if compute_metrics:
+        out.update(dice_sum=zero, iou_sum=zero, bf1_sum=zero, n=zero)
+    return out
 
 
 def make_eval_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
@@ -222,18 +364,19 @@ def make_eval_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
     of the global thresholded Dice; ``iou_score`` / ``boundary_f1_score``
     (and ``per_sample_dice``) are per-sample means.  ``shard`` as in
     :func:`make_train_step_fn`."""
-    reduce = None if shard is None else shard.all_sum
-    loss_fn = make_loss_and_components(loss_cfg, reduce)
+    loss_fn = make_loss_and_components(loss_cfg) if shard is None else shard.loss_fn(loss_cfg)
     forward = forward_nhwc if shard is None else shard.forward
+    reduce = None if shard is None else shard.all_sum
 
     @torch.no_grad()
     def epoch_fn(model, images, masks, idx, valid):
         model.eval()
         outs = []
         for b in range(idx.shape[0]):
-            x, y, valid_b = images[idx[b]], masks[idx[b]], valid[b]
+            x, y, valid_all = images[idx[b]], masks[idx[b]], valid[b]
+            valid_b = valid_all
             if shard is not None:
-                x, y, valid_b = shard.local(x), shard.local(y), shard.local(valid_b)
+                x, y, valid_b = shard.local(x), shard.local(y), shard.local(valid_all)
             pred = forward(model, x, precision)
             total, comps = loss_fn(pred, y, _sample_mask(valid_b, x.dim()))
             p2, y2 = pred[..., 0], y[..., 0]
@@ -241,7 +384,7 @@ def make_eval_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
                    "global_dice": M.dice_score(p2, y2, mask=_sample_mask(valid_b, p2.dim()),
                                                reduce=reduce)}
             if compute_metrics:
-                out.update(_batch_metrics(pred, y, valid_b, reduce))
+                out.update(_batch_metrics(pred, y, valid_all, shard))
             outs.append(out)
         cols = _to_host(outs)
         results = {k: float(cols[k].mean()) for k in _LOSS_KEYS}

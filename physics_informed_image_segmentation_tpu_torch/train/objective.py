@@ -63,7 +63,7 @@ def _total(cfg: LossConfig, comps: dict) -> torch.Tensor:
     )
 
 
-def make_loss_and_components(cfg: LossConfig, reduce=None):
+def make_loss_and_components(cfg: LossConfig, reduce=None, physics_sums=None):
     """Returns ``f(pred, target, mask) -> (total_loss, components_dict)``.
 
     The components dict always has keys dice_loss / bce_loss / pde_loss /
@@ -75,10 +75,17 @@ def make_loss_and_components(cfg: LossConfig, reduce=None):
     the valid-pixel count are then reduced before Dice's ratio and the
     means are formed, so the loss is that of the global batch: the kernel
     K1 when it would serve the batch, else its plain version.
+
+    ``physics_sums(u, m)`` (with ``reduce``): the per-image masked
+    ``[Σr², Σpf]`` of a band of a space-sharded batch, whose stencils need
+    the neighbouring bands (:func:`..parallel.halo.halo_physics_sums`, K3);
+    Dice and BCE are then summed on the band in plain PyTorch.
     """
 
     def kernel_loss_fn(pred, target, mask=None, plain=False):
         from ..ops import physics_kernel
+
+        source = dict(plain=plain) if physics_sums is None else dict(physics_sums=physics_sums)
 
         comps = physics_kernel.fused_loss_components(
             pred,
@@ -92,7 +99,7 @@ def make_loss_and_components(cfg: LossConfig, reduce=None):
             need_pde=cfg.pde_weight > 0,
             need_phase_field=cfg.phase_field_weight > 0,
             reduce=reduce,
-            plain=plain,
+            **source,
         )
         return _total(cfg, comps), comps
 

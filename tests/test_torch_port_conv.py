@@ -27,6 +27,16 @@ from physics_informed_image_segmentation_tpu_torch.ops.conv_kernel import (
 from physics_informed_image_segmentation_tpu_torch.utils import conv_probe
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _data(b=2, h=16, w=16, cin=8, cout=8, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, h, w, cin)).astype(np.float32)

@@ -39,6 +39,16 @@ pytestmark = pytest.mark.cuda
 D, A, EPS = 5.0, 0.5, 0.05
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -645,3 +655,42 @@ def test_batched_study_launches_k1_once_per_member(cuda, tmp_path):
     for member in saved["results"]:
         dice = np.asarray(member["in_dist_metrics"]["dice_scores"])
         assert dice.shape == (4,) and np.isfinite(dice).all()
+
+
+def test_prefetch_to_device_on_the_card(cuda):
+    """Pinned host memory and a side stream: the consumer sees every item,
+    in order, with its values, on the card."""
+    from physics_informed_image_segmentation_tpu_torch.data import prefetch_to_device
+
+    items = [(np.full((4, 32, 32, 1), i, np.float32), np.arange(i, i + 4, dtype=np.float32))
+             for i in range(9)]
+    out = list(prefetch_to_device(iter(items), size=3, device="cuda"))
+    assert len(out) == len(items)
+    for (x, v), (tx, tv) in zip(items, out):
+        assert tx.is_cuda and tv.is_cuda
+        assert np.array_equal((tx * 2).cpu().numpy(), x * 2)
+        assert np.array_equal(tv.cpu().numpy(), v)
+
+
+def test_chunk_on_the_card_launches_no_optimizer_on_padding(cuda):
+    """A chunk of 2 real and 2 padding steps with "pallas_adamw": K1 once
+    each way and K2 once per real step, none on the padding."""
+    from physics_informed_image_segmentation_tpu_torch.data import make_blobs
+    from physics_informed_image_segmentation_tpu_torch.models import UNet
+
+    images, masks = make_blobs(8, 32, 32, seed=0)
+    xs = torch.tensor(images).reshape(4, 2, 32, 32, 1).to(cuda)
+    ys = torch.tensor(masks).reshape(4, 2, 32, 32, 1).to(cuda)
+    valids = torch.tensor([[1.0, 1.0], [1.0, 0.0], [0.0, 0.0], [0.0, 0.0]], device=cuda)
+    model = UNet(base_channels=4, generator=torch.Generator().manual_seed(0)).to(cuda)
+    state = engine.create_train_state(model, 1e-3, optimizer="pallas_adamw")
+    chunk = engine.make_train_chunk_fn(LossConfig(pde_weight=1e-3, phase_field_weight=1e-4,
+                                                  diffusion_coeff=D))
+    K.reset_launch_counts()
+    K2.reset_launch_counts()
+    state, out = chunk(state, xs, ys, valids)
+    torch.cuda.synchronize()
+    assert state.step == 2 and K2.launch_counts["adamw"] == 2
+    assert K.launch_counts == {"physics_sums_fwd": 2, "physics_sums_bwd": 2}
+    assert out["n"].tolist() == [2.0, 1.0, 0.0, 0.0]
+    assert bool(torch.isfinite(out["loss"][:2]).all()) and bool(torch.isnan(out["loss"][2:]).all())

@@ -70,6 +70,16 @@ MODEL_METRICS = {"model_path": "", "baseline_model_path": "baseline_",
                  "pde_model_path": "pde_"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_init_weights():
     """The parameters the JAX variant draws for ``SEED``, as a state dict."""
     init_key, _ = jax.random.split(jax.random.key(SEED))

@@ -27,6 +27,16 @@ from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as 
 D, A, EPS = 5.0, 0.5, 0.05
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _case(seed, shape, masked=False, saturated=False):
     rng = np.random.default_rng(seed)
     if saturated:

@@ -33,6 +33,16 @@ D, A, EPS = 5.0, 0.5, 0.05
 CORNERS = np.s_[:, [0, 0, -1, -1], [0, -1, 0, -1]]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _case(seed, shape, saturated=False):
     rng = np.random.default_rng(seed)
     if saturated:

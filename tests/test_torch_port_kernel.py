@@ -29,6 +29,16 @@ D, A, EPS = 5.0, 0.5, 0.05
 PARAMS = dict(diffusion_coeff=D, reaction_threshold=A, epsilon=EPS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _pair(seed, shape):
     rng = np.random.default_rng(seed)
     pred = rng.uniform(0.02, 0.98, size=shape).astype(np.float32)

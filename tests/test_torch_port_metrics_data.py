@@ -31,6 +31,16 @@ from physics_informed_image_segmentation_tpu_torch.ops import metrics, stats
 from physics_informed_image_segmentation_tpu_torch.train import csvlog
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _masks(seed, shape=(4, 24, 24)):
     rng = np.random.default_rng(seed)
     pred = rng.uniform(size=shape).astype(np.float32)

@@ -60,6 +60,16 @@ BF16_RTOL = 2.0**-7
 NAMES = ("adamw", "flat_adamw", "grouped_adamw", "pallas_adamw", "bf16m_adamw", "bf16mv_adamw")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _tree(leaves):
     return {"a": leaves[0], "b": {"w": leaves[1]}, "c": leaves[2]}
 

@@ -54,6 +54,16 @@ LR = 1e-3
 STEP_SIZES = (32, 64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_model(seed):
     jmodel = JaxUNet(base_channels=C, dropout=0.0, dtype=jnp.float32)
     params = jmodel.init(jax.random.key(seed), jnp.zeros((1, HW, HW, 1), jnp.float32))
@@ -277,13 +287,20 @@ def test_options_that_are_not_supported_raise(world1):
     cfg = LossConfig(**STEP_PHYSICS)
     with pytest.raises(ValueError, match="halo_physics requires spatial"):
         P.make_sharded_train_step(cfg, world1, spatial=False, halo_physics=True)
-    with pytest.raises(NotImplementedError, match="Boundary-F1"):
-        P.make_sharded_epoch_fns(cfg, world1, spatial=True)
     state = engine.create_train_state(_port_model(0.0), LR)
     step = P.make_sharded_train_step(cfg, world1, spatial=True, halo_physics=True)
     images, masks = make_blobs(1, 40, 40, seed=0)
     with pytest.raises(ValueError, match="not divisible by 16"):
         step(state, torch.tensor(images), torch.tensor(masks))
+    # space-sharded epochs: a band not divisible by 16, and a band shorter
+    # than Boundary-F1's tolerance + 1 rows of halo
+    train_fn, _ = P.make_sharded_epoch_fns(cfg, world1, spatial=True)
+    idx, valid = torch.zeros((1, 1), dtype=torch.long), torch.ones((1, 1))
+    with pytest.raises(ValueError, match="not divisible by 16"):
+        train_fn(state, torch.tensor(images), torch.tensor(masks), idx, valid)
+    band = torch.zeros((2, 1, 2, 8))
+    with pytest.raises(ValueError, match="halo of 3 rows"):
+        P.halo_exchange_pad(band, world1, "zero", rows=3)
 
 
 @pytest.mark.parametrize("dropout", [0.0, 0.2])

@@ -43,6 +43,16 @@ from physics_informed_image_segmentation_tpu_torch.train.loop import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def data():
     images, masks = make_blobs(8, 32, 32, seed=0)

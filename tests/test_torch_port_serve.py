@@ -45,6 +45,16 @@ HW = 32
 FWD_ATOL = 2e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _write_checkpoints(directory, base_channels, seed):
     """The same random weights as ``model.msgpack`` and ``model.pth``."""
     jmodel = JaxUNet(base_channels=base_channels, dtype=jnp.float32)

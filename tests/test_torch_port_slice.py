@@ -36,6 +36,16 @@ JAX_PKG = "physics_informed_image_segmentation_tpu"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _splits(n_train=6, n_val=3, n_test=3, hw=32):
     images, masks = make_blobs(n_train + n_val + n_test, hw, hw, seed=0)
     cut = lambda a, b: DeviceDataset.from_numpy(images[a:b], masks[a:b], "cpu")

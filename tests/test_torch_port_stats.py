@@ -29,6 +29,16 @@ KEYS = ["dice_scores", "iou_scores", "boundary_f1_scores", "hausdorff_distances"
 STAT_RTOL = 1e-12
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _pair(case, n=12, seed=0):
     """(baseline, pde) metric dicts for one named case."""
     rng = np.random.default_rng(seed)

@@ -99,6 +99,16 @@ PHYSICS_COLUMNS = ("train_pde_loss", "train_phase_field_loss", "val_pde_loss",
                    "val_phase_field_loss")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _read_rows(path):
     with open(path, newline="") as f:
         return list(csv.DictReader(f))

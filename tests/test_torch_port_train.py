@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from physics_informed_image_segmentation_tpu.data import DeviceDataset as JaxDataset
@@ -34,6 +35,16 @@ from physics_informed_image_segmentation_tpu_torch.utils.weights import state_di
 C, HW = 8, 32
 PHYSICS = dict(pde_weight=1e-4, phase_field_weight=1e-4, diffusion_coeff=5.0,
                reaction_threshold=0.5, epsilon=0.05)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _models(seed=0):

@@ -16,7 +16,10 @@ Scenarios read their inputs from ``DIR/inputs.npz`` (and, for weights,
 * ``dp``: data-parallel epochs (``make_sharded_epoch_fns``) and
   ``shard_train_state`` for every optimizer;
 * ``step``: the data×space train step with halo physics (K3's plain
-  version) at each of two image sizes, and with the plain halo stencils.
+  version) at each of two image sizes, and with the plain halo stencils;
+* ``spatial``: ``train_stage`` over space-sharded epochs
+  (``make_sharded_epoch_fns(spatial=True)``), then one more validation
+  pass.
 """
 
 from __future__ import annotations
@@ -197,6 +200,34 @@ def scenario_step(inp, torch, P) -> dict:
     return out
 
 
+def scenario_spatial(inp, torch, P) -> dict:
+    """``train_stage`` with space-sharded epochs from the given weights
+    (dropout 0), the epoch rows and parameters after it, and a validation
+    pass of the trained model."""
+    from physics_informed_image_segmentation_tpu_torch.data import DeviceDataset
+    from physics_informed_image_segmentation_tpu_torch.models import UNet
+    from physics_informed_image_segmentation_tpu_torch.train import LossConfig, engine
+
+    mesh = P.make_mesh(data=int(inp["data"]), space=int(inp["space"]))
+    cfg = LossConfig(pde_weight=1e-3, phase_field_weight=1e-4, diffusion_coeff=5.0)
+    model = UNet(base_channels=int(inp["base"]), dropout=0.0)
+    model.load_state_dict(torch.load(Path(inp["workdir"].item()) / "weights.pt"))
+    state = P.shard_train_state(engine.create_train_state(model, float(inp["lr"])), mesh)
+    train = DeviceDataset.from_numpy(inp["train_images"], inp["train_masks"], "cpu")
+    val = DeviceDataset.from_numpy(inp["val_images"], inp["val_masks"], "cpu")
+    train_fn, eval_fn = P.make_sharded_epoch_fns(cfg, mesh, spatial=True)
+    state, _, _, rows = engine.train_stage(
+        state, train_fn, eval_fn, train, val, batch_size=int(inp["batch"]),
+        num_epochs=int(inp["epochs"]), stage_name="spatial", shuffle_seed=int(inp["seed"]),
+        verbose=False)
+    out = {f"row{e}/{k}": float(v) for e, row in enumerate(rows) for k, v in row.items()}
+    val_idx, val_valid = torch.tensor(inp["val_idx"]), torch.tensor(inp["val_valid"])
+    res = eval_fn(model, val.images, val.masks, val_idx, val_valid)
+    out.update({f"val/{k}": v for k, v in res.items()})
+    out.update(_params(model))
+    return out
+
+
 def main(argv) -> int:
     scenario, workdir, rank, world = argv[1], Path(argv[2]), int(argv[3]), int(argv[4])
     import torch
@@ -212,7 +243,8 @@ def main(argv) -> int:
         inp = dict(np.load(workdir / "inputs.npz"))
         inp["workdir"] = np.array(str(workdir))
         out = {"scenario_halo": scenario_halo, "scenario_dp": scenario_dp,
-               "scenario_step": scenario_step}[f"scenario_{scenario}"](inp, torch, P)
+               "scenario_step": scenario_step,
+               "scenario_spatial": scenario_spatial}[f"scenario_{scenario}"](inp, torch, P)
         np.savez(workdir / f"out_{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
