@@ -36,6 +36,13 @@ final result line):
    aggregate), ``evaluate_and_compare`` and ``run_repeated_evaluations`` on
    its checkpoints, and the ``run_ablation`` and ``evaluate`` CLIs on a
    synthetic COCO layout;
+   then the reference-name surface (``compat.py``) at the same width:
+   ``DiceBCEPDELoss`` on a (8, 1, 128, 128) batch forward and backward
+   through K1 (1 / 1 launches) against its plain path, the native
+   rasteriser against PIL on a synthetic COCO split,
+   ``evaluate_on_test_set`` from a base-64 ``.pth`` on that split, and the
+   ``Predictor`` and ``evaluate_on_test_set`` from the committed
+   ``.msgpack`` fixtures against the JAX Predictor's stored outputs;
 6. drive the K2 path, ``create_train_state(optimizer="pallas_adamw")``
    with the Stage II objective through ``train_stage``, at the same width
    and check its launch counts; then 3 float32 steps with deterministic
@@ -1135,6 +1142,140 @@ def drive_sweep(smi: str) -> dict:
             "serial_loss_max_rel_diff": loss_rel, "serial_score_max_abs_diff": score_err,
             "serial_pde_columns_apart": cross_rel, "serial_max_abs_dparam": gap,
             "serial_movement": move, "run_ablation_batched_cli_s": cli_s, "card": smi}
+
+
+# The reference-name surface (compat.py).  The compat loss through K1
+# against the same class on its plain path (CPU tensors): K1's bars, sums
+# (here the loss) rtol 1e-5, gradients atol 1e-6 * max|g| + rtol 1e-5.  The
+# Predictor from the committed .msgpack fixtures against the JAX Predictor's
+# outputs stored beside them (XLA on a CPU): float32 1e-4, the bar of the
+# U-Net forward on the card against the CPU (check_unet); bf16 2e-3, the
+# CPU tests' bar for bf16 against JAX's bf16 (a value may land on the
+# neighbouring bf16 after any layer).  Metrics of one evaluation on the card
+# and on the CPU: a pixel within the forward's 1e-4 of the threshold may
+# flip; one flip moves a 128x128 image's Dice by about 1e-4 and its
+# Boundary-F1, which counts only the few hundred boundary pixels, by up to
+# about 5e-3.
+# The native rasteriser against PIL: the share of equal mask pixels of
+# tests/test_native.py, 0.995 (the two differ on a thin ring of sub-pixel
+# boundary cases).
+COMPAT_FWD_ATOL, COMPAT_BF16_ATOL, COMPAT_METRIC_ATOL, RASTER_AGREE = 1e-4, 2e-3, 5e-3, 0.995
+
+
+def drive_compat(smi: str) -> dict:
+    """The reference names at the published width: ``DiceBCEPDELoss`` on a
+    (8, 1, 128, 128) CUDA batch forward and backward with K1's launch counts
+    and against its plain path; ``evaluate_on_test_set`` from a base-64
+    ``.pth`` on a synthetic COCO split, whose masks the native rasteriser
+    draws as PIL does; the ``Predictor`` and ``evaluate_on_test_set`` from
+    the committed ``.msgpack`` fixtures."""
+    from physics_informed_image_segmentation_tpu_torch import (
+        DiceBCEPDELoss, UNet, evaluate_model, evaluate_on_test_set,
+    )
+    from physics_informed_image_segmentation_tpu_torch.data import (
+        DeviceDataset, load_split, write_synthetic_coco,
+    )
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
+    from physics_informed_image_segmentation_tpu_torch.ops.losses import dice_bce_pde_loss
+    from physics_informed_image_segmentation_tpu_torch.serve import Predictor
+    from physics_informed_image_segmentation_tpu_torch.train import save_params
+
+    out = {"card": smi}
+    g = torch.Generator().manual_seed(11)
+    pred = 0.02 + 0.96 * torch.rand((8, 1, 128, 128), generator=g)
+    target = (torch.rand((8, 1, 128, 128), generator=g) > 0.5).float()
+    loss_fn = DiceBCEPDELoss(pde_weight=1e-3, phase_field_weight=1e-3)
+
+    def value_and_grad(p, t):
+        p = p.clone().requires_grad_(True)
+        loss = loss_fn(p, t)
+        return loss.detach(), torch.autograd.grad(loss, p)[0]
+
+    p_cuda, t_cuda = pred.cuda(), target.cuda()
+    K.reset_launch_counts()
+    loss_k, grad_k = value_and_grad(p_cuda, t_cuda)
+    torch.cuda.synchronize()
+    counts = dict(K.launch_counts)
+    loss_p, grad_p = value_and_grad(pred, target)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    gk, gp = grad_k.cpu(), grad_p
+    gerr = float((gk - gp).abs().max())
+    print(f"compat DiceBCEPDELoss (8,1,128,128) through K1: launches {counts}; loss "
+          f"{float(loss_k):.8f} against the plain path {float(loss_p):.8f} (rel {rel:.3e}), "
+          f"gradient max|d| {gerr:.3e}")
+    check(counts == {"physics_sums_fwd": 1, "physics_sums_bwd": 1},
+          f"expected 1 / 1 K1 launches on the compat path, got {counts}")
+    check(rel <= SUM_RTOL, f"compat loss differs from its plain path by {rel:.3e} relative")
+    check(grad_ok(gk, gp), f"compat loss gradient differs from its plain path by {gerr:.3e}")
+    out.update(counts=counts, loss_rel=rel, grad_max_abs=gerr)
+    out["ms_kernel"] = time_cuda(lambda: value_and_grad(p_cuda, t_cuda))
+
+    def plain_on_card():
+        p = p_cuda.clone().requires_grad_(True)
+        torch.autograd.grad(dice_bce_pde_loss(p, t_cuda, pde_weight=1e-3,
+                                              phase_field_weight=1e-3), p)
+
+    out["ms_plain"] = time_cuda(plain_on_card)
+    print(f"compat loss forward + backward: K1 {out['ms_kernel']:.4f} ms, plain PyTorch on the "
+          f"card {out['ms_plain']:.4f} ms ({smi})")
+
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        img_dir, ann = write_synthetic_coco(Path(tmp) / "test", n=8, height=128, width=128,
+                                            seed=21)
+        pil, native = load_split(img_dir, ann), load_split(img_dir, ann, raster_backend="native")
+        agree = float((pil.masks == native.masks).mean())
+        print(f"native rasteriser against PIL on the split: {agree:.6f} of mask pixels equal, "
+              f"{int((pil.masks != native.masks).sum())} differ")
+        check(np.array_equal(pil.images, native.images) and agree >= RASTER_AGREE,
+              f"native masks agree with PIL's on {agree} of pixels")
+        model = UNet(base_channels=64, generator=torch.Generator().manual_seed(5)).cuda()
+        pth = save_params(model, Path(tmp) / "unet.pth")
+        t0 = time.perf_counter()
+        with quiet():
+            metrics = evaluate_on_test_set(str(pth), img_dir, ann, batch_size=8)
+        out["evaluate_s"] = time.perf_counter() - t0
+        with quiet():
+            direct = evaluate_model(model.eval(), DeviceDataset.from_numpy(
+                pil.images, pil.masks, "cuda"), 8, precision="f32")
+        check(set(metrics) == {"dice_scores", "iou_scores", "boundary_f1_scores",
+                               "hausdorff_distances"}, f"metric keys {sorted(metrics)}")
+        for k, v in metrics.items():
+            check(v.shape == (8,) and np.array_equal(v, direct[k], equal_nan=True),
+                  f"evaluate_on_test_set {k} differs from evaluate_model: {v} {direct[k]}")
+        check(np.isfinite(metrics["dice_scores"]).all(), "non-finite Dice")
+        print(f"evaluate_on_test_set(.pth, base 64, 8 images 128x128, f32): "
+              f"{out['evaluate_s']:.3f} s, mean Dice {metrics['dice_scores'].mean():.6f} ({smi})")
+
+        fixtures = REPO / "tests" / "torch_port_data"
+        expected = np.load(fixtures / "unet_b4_expected.npz")
+        images = expected["input"].transpose(0, 2, 3, 1)
+        for precision, atol in (("f32", COMPAT_FWD_ATOL), ("bf16", COMPAT_BF16_ATOL)):
+            kw = dict(base_channels=4, batch_size=2, image_size=(32, 32), precision=precision)
+            path = fixtures / f"unet_b4_{precision}.msgpack"
+            predictor = Predictor(path, **kw)
+            diff = float(np.abs(predictor.predict(images) - expected[precision]).max())
+            print(f"Predictor from {path.name} on the card against the JAX Predictor's "
+                  f"outputs: max|d| {diff:.3e} (bar {atol})")
+            check(diff <= atol, f"{path.name}: Predictor differs from JAX by {diff}")
+            out[f"msgpack_{precision}_max_abs"] = diff
+        small_dir, small_ann = write_synthetic_coco(Path(tmp) / "small", n=6, height=40,
+                                                    width=40, seed=22)
+        f32 = dict(base_channels=4, batch_size=2, image_size=(32, 32), precision="f32")
+        with quiet():
+            on_card = evaluate_on_test_set(Predictor(fixtures / "unet_b4_f32.msgpack", **f32),
+                                           small_dir, small_ann, batch_size=2)
+            on_cpu = evaluate_on_test_set(
+                Predictor(fixtures / "unet_b4_f32.msgpack", device="cpu", **f32),
+                small_dir, small_ann, device="cpu", batch_size=2)
+        worst = max(float(np.abs(on_card[k] - on_cpu[k]).max())
+                    for k in ("dice_scores", "iou_scores", "boundary_f1_scores"))
+        print(f"evaluate_on_test_set(.msgpack Predictor) card against CPU: max|d| {worst:.3e}")
+        check(worst <= COMPAT_METRIC_ATOL and np.isfinite(on_card["dice_scores"]).all(),
+              f"evaluation from the .msgpack differs between card and CPU by {worst}")
+        out["msgpack_eval_card_vs_cpu"] = worst
+    return out
 
 
 def unet64(seed: int = 0):
@@ -2378,6 +2519,8 @@ def main() -> int:
     torch.cuda.synchronize()
     sweep = drive_sweep(smi)
     torch.cuda.synchronize()
+    compat = drive_compat(smi)
+    torch.cuda.synchronize()
     k2_counts = drive_adamw_path()
     check_adamw_path_bit_equal()
     check_resume_engine()
@@ -2409,6 +2552,7 @@ def main() -> int:
          "replaces": "physics_informed_image_segmentation_tpu/ops/pallas_physics.py:245",
          "launches": counts["physics_sums_fwd"],
          "sweep_launches": sweep["k1_launches"]["physics_sums_fwd"],
+         "compat_launches": compat["counts"]["physics_sums_fwd"],
          "streaming_launches": streaming["counts"]["physics_sums_fwd"],
          "spatial_epochs_launches": parallel["spatial"]["counts"]["physics_sums_fwd"],
          "max_abs_err": errors["physics_sums_fwd"],
@@ -2419,6 +2563,7 @@ def main() -> int:
          "replaces": "physics_informed_image_segmentation_tpu/ops/pallas_physics.py:262",
          "launches": counts["physics_sums_bwd"],
          "sweep_launches": sweep["k1_launches"]["physics_sums_bwd"],
+         "compat_launches": compat["counts"]["physics_sums_bwd"],
          "streaming_launches": streaming["counts"]["physics_sums_bwd"],
          "spatial_epochs_launches": parallel["spatial"]["counts"]["physics_sums_bwd"],
          "max_abs_err": errors["physics_sums_bwd"],
@@ -2485,6 +2630,7 @@ def main() -> int:
                       "shape": "(8,128,128,64->64) bf16", "card": smi}))
     print(json.dumps({"experiments": experiments}))
     print(json.dumps({"sweep": sweep}))
+    print(json.dumps({"compat": compat}))
     spatial = parallel["spatial"]
     print(json.dumps({"spatial_epochs": {k: spatial[k] for k in (
         "counts", "seconds", "peak_bytes", "peak_above_start_bytes", "vs_unsharded")},

@@ -1,8 +1,8 @@
-"""Data layer: COCO decode, device-resident and streamed pipelines,
-augmentation, synthetic fixtures."""
+"""Data layer: COCO decode (PIL or the native rasteriser), device-resident
+and streamed pipelines, augmentation, synthetic fixtures."""
 
 from .augment import d4_augment, flip_augment  # noqa: F401
-from .coco import CocoSegmentationSource, rasterize_polygons  # noqa: F401
+from .coco import CocoSegmentationSource, load_split, rasterize_polygons  # noqa: F401
 from .pipeline import (  # noqa: F401
     DeviceDataset,
     epoch_batch_indices,
@@ -20,6 +20,7 @@ from .synthetic import make_blobs, write_synthetic_coco  # noqa: F401
 
 __all__ = [
     "CocoSegmentationSource",
+    "load_split",
     "d4_augment",
     "flip_augment",
     "rasterize_polygons",

@@ -1,7 +1,6 @@
 """Host-side COCO-JSON → (image, mask) decoding (PIL, imported on use).
 
-Counterpart of ``physics_informed_image_segmentation_tpu/data/coco.py``
-with the PIL rasteriser:
+Counterpart of ``physics_informed_image_segmentation_tpu/data/coco.py``:
 
 * index ``images`` by id, group ``annotations`` by ``image_id``,
 * keep only annotated images that exist on disk (warn + skip missing),
@@ -9,7 +8,9 @@ with the PIL rasteriser:
   normalisation with +1e-8,
 * mask rasterised from polygon lists (>= 6 coords) with PIL
   ``ImageDraw.polygon(outline=1, fill=1)`` at the original resolution,
-  then NEAREST-resized and re-binarised (> 0).
+  then NEAREST-resized and re-binarised (> 0); ``raster_backend="native"``
+  fills the polygons with the C++ scanline rasteriser instead
+  (:mod:`.native_raster`).
 
 The whole split is decoded into dense ``(N, H, W, 1)`` float32 arrays
 once.
@@ -24,28 +25,39 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["CocoSegmentationSource", "rasterize_polygons"]
+__all__ = ["CocoSegmentationSource", "rasterize_polygons", "load_split"]
+
+RASTER_BACKENDS = ("pil", "native")
 
 
 def rasterize_polygons(
     annotations: Sequence[dict],
     original_size: tuple[int, int],
     target_size: tuple[int, int],
+    backend: str = "pil",
 ) -> np.ndarray:
-    """COCO polygon annotations → binary mask at ``target_size`` (H, W)."""
+    """COCO polygon annotations → binary mask at ``target_size`` (H, W),
+    filled by PIL or, with ``backend="native"``, by :mod:`.native_raster`."""
     from PIL import Image, ImageDraw
 
     H, W = original_size
-    mask_img = Image.new("L", (W, H), 0)
-    draw = ImageDraw.Draw(mask_img)
-    for ann in annotations:
-        segmentation = ann.get("segmentation", [])
-        if isinstance(segmentation, list):
-            for poly in segmentation:
-                if len(poly) >= 6:
-                    pts = np.asarray(poly, dtype=np.float64).reshape(-1, 2)
-                    draw.polygon(pts.flatten().tolist(), outline=1, fill=1)
-    mask = np.array(mask_img, dtype=np.float32)
+    if backend == "native":
+        from .native_raster import rasterize_native
+
+        mask = rasterize_native(annotations, (H, W))
+    elif backend == "pil":
+        mask_img = Image.new("L", (W, H), 0)
+        draw = ImageDraw.Draw(mask_img)
+        for ann in annotations:
+            segmentation = ann.get("segmentation", [])
+            if isinstance(segmentation, list):
+                for poly in segmentation:
+                    if len(poly) >= 6:
+                        pts = np.asarray(poly, dtype=np.float64).reshape(-1, 2)
+                        draw.polygon(pts.flatten().tolist(), outline=1, fill=1)
+        mask = np.array(mask_img, dtype=np.float32)
+    else:
+        raise ValueError(f"unknown raster backend {backend!r}; expected one of {RASTER_BACKENDS}")
 
     th, tw = target_size
     resized = Image.fromarray(mask.astype(np.uint8)).resize((tw, th), resample=Image.NEAREST)
@@ -76,6 +88,7 @@ class CocoSegmentationSource:
     image_dir: Path
     annotation_file: Path
     image_size: tuple[int, int] = (128, 128)
+    raster_backend: str = "pil"
     images: np.ndarray = field(init=False)
     masks: np.ndarray = field(init=False)
     image_ids: list = field(init=False)
@@ -119,6 +132,7 @@ class CocoSegmentationSource:
                     anns_by_image[img_id],
                     original_size=(info["height"], info["width"]),
                     target_size=self.image_size,
+                    backend=self.raster_backend,
                 )
             )
         h, w = self.image_size
@@ -128,3 +142,14 @@ class CocoSegmentationSource:
 
     def __len__(self) -> int:
         return len(self.image_ids)
+
+
+def load_split(
+    image_dir,
+    annotation_file,
+    image_size: tuple[int, int] = (128, 128),
+    raster_backend: str = "pil",
+) -> CocoSegmentationSource:
+    """One decoded split (:class:`CocoSegmentationSource`)."""
+    return CocoSegmentationSource(Path(image_dir), Path(annotation_file), image_size,
+                                  raster_backend)

@@ -59,23 +59,32 @@ def make_json_serializable(obj: Any) -> Any:
     return str(obj)
 
 
+def _precision(precision: Optional[str], dtype: Optional[str]) -> str:
+    """The evaluation precision from ``precision`` or the JAX package's name
+    for it, ``dtype`` ("bf16" when neither is given)."""
+    if precision is not None and dtype is not None and precision != dtype:
+        raise TypeError(f"precision={precision!r} and dtype={dtype!r} disagree; give one")
+    return precision or dtype or "bf16"
+
+
 def load_unet_params(
     model_path,
     model: Optional[UNet] = None,
     base_channels: int = 64,
-    precision: str = "bf16",
+    precision: Optional[str] = None,
     device=None,
+    dtype: Optional[str] = None,
 ):
     """``(model, model)``: a U-Net on ``device`` holding the weights of a
     ``.pth`` checkpoint (into ``model`` when given).
 
     The pair unpacks as the JAX function's ``(model, params)`` does; here
-    the module holds its parameters.  ``precision`` is the one the model
-    will be evaluated in (``"f32"`` turns TF32 off).  A Flax ``.msgpack``
-    file raises ``ValueError``.
+    the module holds its parameters.  ``precision`` (or its JAX name
+    ``dtype``) is the one the model will be evaluated in (``"f32"`` turns
+    TF32 off).  A Flax ``.msgpack`` from the JAX package loads too.
     """
     device = resolve_device(device)
-    set_precision(precision)
+    set_precision(_precision(precision, dtype))
     if model is None:
         model = UNet(in_channels=1, out_channels=1, base_channels=base_channels)
     model = load_params(model_path, model.to(device))
@@ -109,15 +118,18 @@ def evaluate_and_compare(
     output_dir=None,
     test_data: Optional[DeviceDataset] = None,
     base_channels: int = 64,
-    precision: str = "bf16",
+    precision: Optional[str] = None,
     device=None,
+    dtype: Optional[str] = None,
 ) -> Dict:
     """Evaluate both checkpoints, compare them and write
     ``evaluation_results_{ts}.csv`` (per image), ``evaluation_summary_{ts}.csv``
     (one row per metric) and ``statistical_comparison_{ts}.json``.
 
     ``test_data`` (a :class:`DeviceDataset`) skips reading ``test_dir`` /
-    ``test_json``.  ``precision``: "bf16" (the default) or "f32"."""
+    ``test_json``.  ``precision`` (or its JAX name ``dtype``): "bf16" (the
+    default) or "f32"."""
+    precision = _precision(precision, dtype)
     device = resolve_device(device)
     output_dir = Path(output_dir) if output_dir is not None else Path.cwd() / "output"
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -205,12 +217,14 @@ def run_repeated_evaluations(
     output_dir=None,
     test_data: Optional[DeviceDataset] = None,
     base_channels: int = 64,
-    precision: str = "bf16",
+    precision: Optional[str] = None,
     device=None,
+    dtype: Optional[str] = None,
 ) -> Dict:
     """Pool the per-image metrics of N seed-paired checkpoint pairs, compare
     the pools and write ``aggregated_results_{ts}.csv`` (metric, model,
-    mean, std, count)."""
+    mean, std, count); ``precision`` as in :func:`evaluate_and_compare`."""
+    precision = _precision(precision, dtype)
     device = resolve_device(device)
     output_dir = Path(output_dir) if output_dir is not None else Path.cwd() / "output"
     output_dir.mkdir(parents=True, exist_ok=True)

@@ -23,7 +23,8 @@ Dropout draws from an explicit ``torch.Generator`` passed to
 ``forward``, or takes masks drawn beforehand (:func:`draw_dropout_masks`),
 as a forward under ``torch.func.vmap`` must.  The output conv runs in the
 autocast type and is cast to float32 before the output activation, so the
-probability map (and every loss computed on it) is float32.
+probability map (and every loss computed on it) is float32 (float64 for a
+float64 model).
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["UNet", "DoubleConv", "count_parameters", "draw_dropout_masks", "ACTIVATIONS"]
+__all__ = ["UNet", "DoubleConv", "count_parameters", "draw_dropout_masks", "mish",
+           "ACTIVATIONS"]
 
 ACTIVATIONS = {
     "relu": nn.ReLU,
@@ -46,6 +48,12 @@ ACTIVATIONS = {
     "silu": nn.SiLU,
     "mish": nn.Mish,
 }
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """Mish activation, ``x * tanh(softplus(x))``, on a tensor (the
+    function of ``nn.Mish``)."""
+    return x * torch.tanh(torch.nn.functional.softplus(x))
 
 
 class PReLU(nn.Module):
@@ -229,7 +237,8 @@ class UNet(nn.Module):
         d3 = self.dec3(torch.cat([self.up3(d4), e3], dim=1), generator, keep.get("dec3"))
         d2 = self.dec2(torch.cat([self.up2(d3), e2], dim=1), generator, keep.get("dec2"))
         d1 = self.dec1(torch.cat([self.up1(d2), e1], dim=1), generator, keep.get("dec1"))
-        out = self.out_conv(d1).float()
+        out = self.out_conv(d1)
+        out = out.to(torch.promote_types(out.dtype, torch.float32))
         if self.output_activation == "sigmoid":
             return torch.sigmoid(out)
         return (torch.tanh(out) + 1.0) / 2.0

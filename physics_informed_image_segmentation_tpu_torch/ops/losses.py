@@ -10,7 +10,8 @@ Counterpart of ``physics_informed_image_segmentation_tpu/ops/losses.py``:
 Every loss optionally takes a ``mask`` broadcastable to ``predictions``
 with 1.0 marking valid elements; padded samples of a ragged final batch
 are masked out and means are taken over the valid elements only.
-Inputs are ``(B, H, W)`` or ``(B, H, W, 1)``.
+Inputs are ``(B, H, W)``, ``(B, H, W, 1)`` or the reference's
+``(B, 1, H, W)`` (:func:`channel_axis`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from . import pde
 
 __all__ = [
+    "channel_axis",
     "soft_dice_loss",
     "bce_elementwise",
     "bce_loss",
@@ -37,6 +39,22 @@ _LOG_CLAMP = -100.0
 # finite gradient where plain autograd through the clamped logs gives
 # 0 * inf = NaN.
 _BCE_GRAD_EPS = 1e-12
+
+
+def channel_axis(x: torch.Tensor) -> Optional[int]:
+    """The singleton channel axis of a field: 3 for ``(B, H, W, 1)``, 1 for
+    the reference's ``(B, 1, H, W)`` (when W is not 1), None for
+    ``(B, H, W)``.  Any other 4-D shape raises ``ValueError``: its stencil
+    axes cannot be told apart."""
+    if x.dim() != 4:
+        return None
+    if x.shape[-1] == 1:
+        return 3
+    if x.shape[1] == 1:
+        return 1
+    raise ValueError(
+        f"expected (B, H, W), (B, H, W, 1) or (B, 1, H, W); got shape {tuple(x.shape)}"
+    )
 
 
 def _masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -127,13 +145,16 @@ def _physics_terms(
 ):
     """(pde_loss, phase_field_loss) over valid elements; a disabled term is 0.
 
-    The stencils act on (H, W): a trailing channel axis of (B, H, W, 1)
-    is dropped first (the JAX package's plain path does not drop it and
-    so differentiates along (W, C) there; its Pallas path drops it).
+    The stencils act on (H, W): the channel axis of (B, H, W, 1) or
+    (B, 1, H, W) is dropped first (the JAX package's plain path does not
+    drop it and so differentiates along (W, C) of (B, H, W, 1); its Pallas
+    path drops it).
     """
-    if predictions.dim() == 4:
-        predictions = predictions[..., 0]
-        mask = None if mask is None else mask[..., 0]
+    axis = channel_axis(predictions)
+    if axis is not None:
+        predictions = predictions.squeeze(axis)
+        if mask is not None and mask.dim() == 4:
+            mask = mask.squeeze(axis)
     zero = torch.zeros((), dtype=predictions.dtype, device=predictions.device)
     u = _masked(predictions, mask)
     scale = 1.0 if mask is None else predictions.numel() / _mask_count(predictions, mask)

@@ -42,7 +42,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import pde
-from .losses import bce_elementwise
+from .losses import bce_elementwise, channel_axis
 
 __all__ = [
     "FusedPhysicsSums",
@@ -424,8 +424,9 @@ def fused_loss_components(
     """Loss components from the fused sums; the same contract as the plain
     component computation of :func:`..train.objective.make_loss_and_components`.
 
-    Accepts (B, H, W) or (B, H, W, 1) predictions/targets; ``mask`` is a
-    per-sample validity mask broadcastable to the prediction.
+    Accepts (B, H, W), (B, H, W, 1) or (B, 1, H, W) predictions/targets
+    (:func:`..ops.losses.channel_axis`); ``mask`` is a per-sample validity
+    mask broadcastable to the prediction.
 
     ``reduce``: for a batch sharded over ranks, a differentiable sum over
     the ranks (:func:`..parallel.mesh.all_sum`), applied to the six totals
@@ -436,9 +437,9 @@ def fused_loss_components(
     field, whose stencils need the neighbouring bands' rows); the Dice and
     BCE sums are then :func:`dice_bce_sums`.
     """
-    if pred.dim() == 4:
-        pred = pred[..., 0]
-        target = target[..., 0]
+    axis = channel_axis(pred)
+    if axis is not None:
+        pred, target = pred.squeeze(axis), target.squeeze(axis)
     b, h, w = pred.shape
     if mask is None:
         m = torch.ones((b, 1), dtype=torch.float32, device=pred.device)

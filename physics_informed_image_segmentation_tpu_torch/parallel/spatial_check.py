@@ -40,7 +40,7 @@ from ..utils.device import card_line, set_precision
 from .mesh import initialize_distributed, make_mesh
 from .sharding import MeshShard, make_sharded_epoch_fns, shard_train_state
 
-__all__ = ["run", "main", "LOSS_RTOL", "SCORE_ATOL", "DICE_ATOL", "PARAM_REL", "GRAD_REL"]
+__all__ = ["run", "main", "param_gap", "LOSS_RTOL", "SCORE_ATOL", "DICE_ATOL", "PARAM_REL", "GRAD_REL"]
 
 STAGE2 = LossConfig(pde_weight=1e-4, phase_field_weight=1e-4, diffusion_coeff=5.0)
 LOSS_RTOL, SCORE_ATOL, DICE_ATOL, PARAM_REL = 1e-4, 1e-6, 1e-5, 5e-2
@@ -179,12 +179,7 @@ def run(size: int = 64, base_channels: int = 4, data: int = 1, *, batch: int = 4
 
     by_epoch = [_row_diffs(rs, rp) for rs, rp in zip(rows_s, rows_p)]
     loss_rel, score_err, dice_err = (max(d[i] for d in by_epoch) for i in range(3))
-    with torch.no_grad():
-        gaps = [a - b for a, b in zip(sharded.parameters(), plain.parameters())]
-        moves = [a - b for a, b in zip(plain.parameters(), start)]
-        gap = max(float(g.abs().max()) for g in gaps)
-        move = max(float(m.abs().max()) for m in moves)
-        l2 = float(torch.sqrt(sum((g * g).sum() for g in gaps) / sum((m * m).sum() for m in moves)))
+    gap, move, l2 = param_gap(sharded, plain, start)
     ok = (loss_rel <= LOSS_RTOL and score_err <= SCORE_ATOL and dice_err <= DICE_ATOL
           and gap <= PARAM_REL * move)
     return {
@@ -199,6 +194,18 @@ def run(size: int = 64, base_channels: int = 4, data: int = 1, *, batch: int = 4
         "val_boundary_f1": [r["val_boundary_f1_score"] for r in rows_s], "ok": ok,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
+
+
+@torch.no_grad()
+def param_gap(model, ref, start) -> tuple:
+    """``(largest |Δp|, largest movement, L2 ratio)``: ``model``'s parameters
+    against ``ref``'s, and ``ref``'s movement from ``start``."""
+    gaps = [a - b for a, b in zip(model.parameters(), ref.parameters())]
+    moves = [a - b for a, b in zip(ref.parameters(), start)]
+    gap = max(float(g.abs().max()) for g in gaps)
+    move = max(float(m.abs().max()) for m in moves)
+    l2 = float(torch.sqrt(sum((g * g).sum() for g in gaps) / sum((m * m).sum() for m in moves)))
+    return gap, move, l2
 
 
 def _row_diffs(rs: dict, rp: dict) -> tuple:

@@ -33,16 +33,9 @@ __all__ = ["sharded_forward_nhwc"]
 _POOLS = 4
 
 
-def _unet(model, x, generator, mesh: Mesh, spatial: bool):
-    if spatial and x.shape[2] % (2**_POOLS) != 0:
-        raise ValueError(f"a band of {x.shape[2]} rows is not divisible by {2**_POOLS}: "
-                         "the U-Net's poolings would cross bands")
-    rows = (x.shape[0] * mesh.data, x.shape[0] * mesh.data_rank)
-
-    def conv(m, h):
-        if not spatial:
-            return m(h)
-        return F.conv2d(halo_exchange_pad(h, mesh, "zero"), m.weight, m.bias, padding=(0, 1))
+def _unet(model, x, generator, rows, conv):
+    """The U-Net's forward with ``conv(module, h)`` for each of its 18 3×3
+    convolutions; ``rows`` is spatial dropout's ``batch_rows``."""
 
     def block(blk, h):
         act = blk.conv[1]
@@ -60,10 +53,18 @@ def _unet(model, x, generator, mesh: Mesh, spatial: bool):
     d3 = block(model.dec3, torch.cat([model.up3(d4), e3], dim=1))
     d2 = block(model.dec2, torch.cat([model.up2(d3), e2], dim=1))
     d1 = block(model.dec1, torch.cat([model.up1(d2), e1], dim=1))
-    out = model.out_conv(d1).float()
+    out = model.out_conv(d1)
+    out = out.to(torch.promote_types(out.dtype, torch.float32))
     if model.output_activation == "sigmoid":
         return torch.sigmoid(out)
     return (torch.tanh(out) + 1.0) / 2.0
+
+
+def check_band_rows(rows: int) -> None:
+    """A band's height must survive the U-Net's four 2× poolings."""
+    if rows % (2**_POOLS) != 0:
+        raise ValueError(f"a band of {rows} rows is not divisible by {2**_POOLS}: "
+                         "the U-Net's poolings would cross bands")
 
 
 def sharded_forward_nhwc(model, x: torch.Tensor, precision: str, generator, mesh: Mesh,
@@ -71,6 +72,15 @@ def sharded_forward_nhwc(model, x: torch.Tensor, precision: str, generator, mesh
     """This rank's (B_loc, H_loc, W, C) block → its (B_loc, H_loc, W, C_out)
     float32 probabilities (see the module docstring); the counterpart of
     :func:`..train.engine.forward_nhwc`."""
+    if spatial:
+        check_band_rows(x.shape[1])
+    rows = (x.shape[0] * mesh.data, x.shape[0] * mesh.data_rank)
+
+    def conv(m, h):
+        if not spatial:
+            return m(h)
+        return F.conv2d(halo_exchange_pad(h, mesh, "zero"), m.weight, m.bias, padding=(0, 1))
+
     with autocast(x.device, precision):
-        out = _unet(model, x.permute(0, 3, 1, 2), generator, mesh, spatial)
+        out = _unet(model, x.permute(0, 3, 1, 2), generator, rows, conv)
     return out.permute(0, 2, 3, 1)

@@ -17,9 +17,10 @@ before the sigmoid.  Those are the places where the JAX model rounds
 It is not ``torch.autocast``, which would cast the float32 weights again
 on every call.
 
-Checkpoints are ``.pth`` state dicts with the reference keys: the files
+Checkpoints are ``.pth`` state dicts with the reference keys (the files
 :func:`..train.checkpoint.save_params` writes, or the reference
-implementation's own.  A Flax ``.msgpack`` file cannot be read here.
+implementation's own), or the Flax ``.msgpack`` files that the JAX
+package's ``save_params`` writes, in float32 or bf16.
 """
 
 from __future__ import annotations
@@ -77,11 +78,13 @@ class Predictor:
         self.dtype = torch.bfloat16 if set_precision(precision) == "bf16" else torch.float32
         if model is None:
             model = UNet(in_channels=1, out_channels=1, base_channels=base_channels)
+        # read in float32 and in the model's own key layout, kept on the
+        # host as read; the model then takes the compute type once
+        self._params = {k: v.detach().to("cpu", copy=True) for k, v in
+                        load_params(checkpoint_path, model.float()).state_dict().items()}
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self.batch_size = batch_size
         self.image_size = tuple(image_size)
-
-        self.params = load_params(checkpoint_path)  # a .msgpack file raises ValueError
 
     @property
     def params(self):

@@ -5,7 +5,9 @@ Counterpart of ``physics_informed_image_segmentation_tpu/train/checkpoint.py``.
 * :func:`save_params` / :func:`load_params`: the U-Net ``state_dict`` as a
   ``.pth`` file.  The keys are the reference keys, so a saved file loads
   into the port's :class:`..models.UNet` and into the reference PyTorch
-  model alike.
+  model alike.  :func:`load_params` also reads the Flax ``.msgpack`` that
+  the JAX package's ``save_params`` writes (:mod:`..utils.flax_msgpack`,
+  mapped by :func:`..utils.weights.state_dict_from_jax`).
 * :func:`save_train_state` / :func:`restore_train_state`: the whole train
   state (step, parameters, optimizer state, dropout generator state) as
   ``<dir>/step_N`` files written with ``torch.save``.  A file is written
@@ -20,6 +22,9 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..utils.flax_msgpack import load_msgpack
+from ..utils.weights import model_dropout, state_dict_from_jax
 
 __all__ = [
     "save_params",
@@ -39,16 +44,21 @@ def save_params(model: torch.nn.Module, path) -> Path:
 
 
 def load_params(path, model: Optional[torch.nn.Module] = None):
-    """Load a ``.pth`` state dict; with ``model``, load it into the model
-    (strictly) and return the model.  A Flax ``.msgpack`` file raises
-    ``ValueError``."""
+    """Load a ``.pth`` state dict, or the parameters of a Flax ``.msgpack``
+    as one (float32, bf16 leaves at their exact values); with ``model``,
+    load it into the model (strictly) and return the model.
+
+    A ``.msgpack`` takes the key layout of ``model``'s dropout, and without
+    a model that of the JAX U-Net's default dropout (0.2), as in
+    :func:`..utils.weights.state_dict_from_jax`."""
     if Path(path).suffix == ".msgpack":
-        raise ValueError(
-            f"{path} is a Flax msgpack checkpoint, which PyTorch cannot read; convert it "
-            "with physics_informed_image_segmentation_tpu/utils/torch_interop.py::"
-            "export_torch_state_dict of the JAX package and torch.save the result as a .pth"
-        )
-    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+        tree = load_msgpack(path)
+        if model is None:
+            state_dict = state_dict_from_jax(tree)
+        else:
+            state_dict = state_dict_from_jax(tree, dropout=model_dropout(model))
+    else:
+        state_dict = torch.load(path, map_location="cpu", weights_only=True)
     if model is None:
         return state_dict
     model.load_state_dict(state_dict)

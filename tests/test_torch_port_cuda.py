@@ -2,7 +2,8 @@
 fused AdamW kernel (K2), the halo-padded physics kernel (K3) and the 3x3
 convolution kernels (K4) against their plain versions, and the Stage II
 objective, the train step, the halo physics loss, the Predictor, a
-three-stage ablation variant and a batched study on the card.
+three-stage ablation variant, a batched study and the reference's
+``DiceBCEPDELoss`` (``compat.py``) on the card.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these tests skip on a
 machine without a GPU.  Run them on the card with
@@ -694,3 +695,30 @@ def test_chunk_on_the_card_launches_no_optimizer_on_padding(cuda):
     assert K.launch_counts == {"physics_sums_fwd": 2, "physics_sums_bwd": 2}
     assert out["n"].tolist() == [2.0, 1.0, 0.0, 0.0]
     assert bool(torch.isfinite(out["loss"][:2]).all()) and bool(torch.isnan(out["loss"][2:]).all())
+
+
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_compat_loss_launches_k1_once_each_way(cuda, layout):
+    """The reference's ``DiceBCEPDELoss`` on CUDA tensors goes through K1 (one
+    launch each way) and agrees with the same class on CPU tensors (its
+    plain path) within K1's bars."""
+    from physics_informed_image_segmentation_tpu_torch.compat import DiceBCEPDELoss
+
+    g = torch.Generator().manual_seed(3)
+    shape = (4, 1, 40, 36) if layout == "nchw" else (4, 40, 36, 1)
+    pred = 0.02 + 0.96 * torch.rand(shape, generator=g)
+    target = (torch.rand(shape, generator=g) > 0.5).float()
+    loss_fn = DiceBCEPDELoss(pde_weight=1e-3, phase_field_weight=1e-3, diffusion_coeff=D)
+
+    def value_and_grad(p, t):
+        p = p.clone().requires_grad_(True)
+        loss = loss_fn(p, t)
+        return loss.detach().cpu(), torch.autograd.grad(loss, p)[0].cpu()
+
+    K.reset_launch_counts()
+    loss_k, grad_k = value_and_grad(pred.to(cuda), target.to(cuda))
+    assert K.launch_counts == {"physics_sums_fwd": 1, "physics_sums_bwd": 1}
+    loss_p, grad_p = value_and_grad(pred, target)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    assert torch.all((grad_k - grad_p).abs()
+                     <= 1e-6 * grad_p.abs().max() + 1e-5 * grad_p.abs())

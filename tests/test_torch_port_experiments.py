@@ -373,9 +373,16 @@ def test_run_repeated_evaluations_matches_jax(runs, tmp_path):
 
 
 def test_load_unet_params_refuses_msgpack(runs):
+    """(Named when a ``.msgpack`` was refused.)  The ``.msgpack`` that the
+    JAX study wrote loads: the model holds its parameters exactly as
+    ``state_dict_from_jax`` maps them."""
     (jax_res, _), _ = runs["results"]["three"]
-    with pytest.raises(ValueError, match="export_torch_state_dict"):
-        compare.load_unet_params(jax_res["model_path"], base_channels=C, device="cpu")
+    model, _ = compare.load_unet_params(jax_res["model_path"], base_channels=C, device="cpu")
+    ref = state_dict_from_jax(jax_load_params(jax_res["model_path"]))
+    sd = model.state_dict()
+    assert set(sd) == set(ref)
+    for k, v in sd.items():
+        torch.testing.assert_close(v, ref[k], rtol=0, atol=0, msg=k)
 
 
 # ---------------------------------------------------------------- the CLIs

@@ -221,12 +221,15 @@ def test_bf16_matches_jax_bf16(ckpt, pair):
 
 
 def test_checkpoint_formats(ckpt, tmp_path):
-    with pytest.raises(ValueError, match="export_torch_state_dict"):
-        Predictor(ckpt / "model.msgpack", base_channels=4, device="cpu")
+    kw = dict(batch_size=2, image_size=(HW, HW), precision="f32", device="cpu")
+    # the JAX package's .msgpack holds the weights of the .pth made from it
+    from_msgpack = Predictor(ckpt / "model.msgpack", base_channels=4, **kw)
+    from_pth = Predictor(ckpt / "model.pth", base_channels=4, **kw)
+    for k, v in from_pth.params.items():
+        torch.testing.assert_close(from_msgpack.params[k], v, rtol=0, atol=0, msg=k)
     # a file written by the port's save_params, and a model passed in
     model = UNet(base_channels=4, generator=torch.Generator().manual_seed(3))
     save_params(model, tmp_path / "own.pth")
-    kw = dict(batch_size=2, image_size=(HW, HW), precision="f32", device="cpu")
     a = Predictor(tmp_path / "own.pth", base_channels=4, **kw)
     b = Predictor(tmp_path / "own.pth", model=UNet(base_channels=4), **kw)
     images = _images(2, seed=9)

@@ -221,6 +221,42 @@ def test_spatial_check_at_world_one(world1):
     assert res["first_step_grad_max_rel_l2"] <= spatial_check.GRAD_REL
 
 
+@pytest.mark.parametrize("bands", [1, 2, 4])
+def test_banded_forward_is_the_sharded_forward(world1, bands):
+    """``grad_arbiter.banded_forward_nhwc`` runs the space-sharded forward's
+    shapes in one process: equal to the whole forward, and at one band bit
+    for bit the world-one band path."""
+    from physics_informed_image_segmentation_tpu_torch.parallel import grad_arbiter
+    from physics_informed_image_segmentation_tpu_torch.parallel.sharding import MeshShard
+
+    model = UNet(base_channels=4, dropout=0.0, generator=torch.Generator().manual_seed(0))
+    x = torch.tensor(make_blobs(2, 64, 48, seed=4)[0])
+    banded = grad_arbiter.banded_forward_nhwc(model, x, bands)
+    torch.testing.assert_close(banded, engine.forward_nhwc(model, x, "f32"), rtol=0, atol=1e-6)
+    if bands == 1:
+        assert torch.equal(banded, MeshShard(world1, spatial=True).forward(model, x, "f32"))
+
+
+def test_trajectory_gap_is_the_unsharded_runs_own_rounding(world1):
+    """Why ``spatial_check``'s parameter bar reads the same size whether the
+    run is sharded or not: the unsharded stage against itself with only its
+    convolutions' algorithms changed (oneDNN off here; cuDNN off on the
+    card) differs as much as the sharded stage does.  Observed here: both
+    one float32 ulp of the largest parameter, 7.4e-5 of the movement; on
+    an H100 at base 64, 128²: 26.8%, where the sharded runs read 29% (data 2
+    × space 2) and 7.5% (world 1).  And the first step's gradient: every
+    float32 path within 1e-5 of the float64 gradient at this size."""
+    from physics_informed_image_segmentation_tpu_torch.parallel import grad_arbiter, spatial_check
+
+    res = spatial_check.run()
+    own = grad_arbiter.self_gap(64, 4, device="cpu")["plain"]
+    assert 0 < own["ratio"] <= spatial_check.PARAM_REL
+    assert res["max_abs_dparam"] / res["movement"] <= 2 * own["ratio"]
+    arbiter = grad_arbiter.first_step_arbiter(64, 4, device="cpu")
+    paths = {k: v for k, v in arbiter.items() if k != "vs_whole"}
+    assert len(paths) == 6 and all(v["max_rel_l2"] <= 1e-5 for v in paths.values()), paths
+
+
 # --------------------------------------------------------------------------
 # Boundary-F1 across a band edge
 # --------------------------------------------------------------------------

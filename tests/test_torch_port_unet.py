@@ -1,11 +1,24 @@
 """PyTorch port: U-Net and the JAX-weights import, held against the JAX U-Net.
 
 Weights come from the JAX model's init and are carried over by
-``state_dict_from_jax``; the same numpy input goes through both models in
-float32.  Forward tolerance: 2e-6 absolute, the bar of
+``state_dict_from_jax``; the same numpy input goes through both models.
+Forward tolerance, both in float32: 2e-6 absolute, the bar of
 tests/test_torch_interop.py.  Gradients: rtol 1e-4 plus atol 1e-6·max|g| per
-tensor, because conv weight gradients sum B·H·W products in a different
-order in XLA and in PyTorch's CPU convolutions.
+tensor, because conv weight gradients are float32 sums of B·H·W products.
+
+The tests run on one intra-op thread.  There float32 resolves some gradient
+elements, sums whose terms cancel, only to a few 1e-6 against the bar's
+1e-6·max|g|, on both sides: JAX's float32 ``enc1.conv.0.bias`` with PReLU
+is 3.3e-6 from the float64 gradient at one element, and oneDNN's reductions
+miss the float64 gradient at one to three elements per case (``up1.bias``
+with ReLU; ``enc1.conv.0.bias``, ``enc1.conv.2.weight`` (6.7e-6) and
+``enc1.conv.2.bias`` with PReLU).  So the gradients are held against JAX's
+gradient taken in float64 (its U-Net casts the logits to float32 before the
+output activation; that costs at most 0.15 of the bar against a gradient
+that is float64 throughout), and the port's gradient pass runs on PyTorch's
+own CPU convolutions, which meet the bar everywhere.  That is a condition
+of the test, not of the port: on the CPU the port runs the convolutions
+PyTorch picks, and its forward pass on them is held against JAX as well.
 """
 
 import jax
@@ -18,6 +31,16 @@ from physics_informed_image_segmentation_tpu.models import UNet as JaxUNet
 from physics_informed_image_segmentation_tpu.utils.torch_interop import export_torch_state_dict
 from physics_informed_image_segmentation_tpu_torch.models import UNet, count_parameters
 from physics_informed_image_segmentation_tpu_torch.utils.weights import state_dict_from_jax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tests, the previous count after
+    it: the suite runs several test processes side by side on one host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _jax_model_and_params(hw, **kw):
@@ -51,25 +74,33 @@ def test_forward_and_gradients_match_jax(decoder, activation):
     x = rng.uniform(size=(2, hw, hw, 1)).astype(np.float32)
     w = rng.normal(size=(2, hw, hw, 1)).astype(np.float32)
 
-    def jax_obj(p, xx):
-        out = jmodel.apply(p, xx, deterministic=True)
-        return jnp.sum(out * w), out
+    ref_out = jmodel.apply(params, jnp.asarray(x), deterministic=True)
+    with torch.no_grad():
+        out = model(torch.tensor(x.transpose(0, 3, 1, 2)))
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 3, 1), np.asarray(ref_out), atol=2e-6)
 
-    (_, ref_out), (ref_gp, ref_gx) = jax.value_and_grad(jax_obj, (0, 1), has_aux=True)(
-        params, jnp.asarray(x))
+    def jax_obj(p, xx, ww):
+        return jnp.sum(jmodel.clone(dtype=jnp.float64).apply(p, xx, deterministic=True) * ww)
+
+    with jax.enable_x64(True):
+        ref_gp, ref_gx = jax.grad(jax_obj, (0, 1))(
+            jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params),
+            jnp.asarray(x, jnp.float64), jnp.asarray(w, jnp.float64))
+        ref_gp, ref_gx = jax.tree_util.tree_map(np.asarray, (ref_gp, ref_gx))
 
     xt = torch.tensor(x.transpose(0, 3, 1, 2), requires_grad=True)
-    out = model(xt)
-    (out * torch.tensor(w.transpose(0, 3, 1, 2))).sum().backward()
+    with torch.backends.mkldnn.flags(enabled=False):
+        out = model(xt)
+        (out * torch.tensor(w.transpose(0, 3, 1, 2))).sum().backward()
     np.testing.assert_allclose(
         out.detach().numpy().transpose(0, 2, 3, 1), np.asarray(ref_out), atol=2e-6)
     _close_grad(xt.grad.numpy().transpose(0, 2, 3, 1), ref_gx, "input")
 
-    ref_grads = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, ref_gp), dropout=0.0)
-    names = dict(model.named_parameters())
-    assert set(names) <= set(ref_grads)
-    for name, p in names.items():
-        _close_grad(p.grad.numpy(), ref_grads[name].numpy(), name)
+    ref_grads = state_dict_from_jax(ref_gp, dropout=0.0)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    assert set(grads) <= set(ref_grads)
+    for name, g in grads.items():
+        _close_grad(g.numpy(), ref_grads[name].numpy(), name)
 
 
 @pytest.mark.parametrize("activation,output", [
