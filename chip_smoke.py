@@ -86,6 +86,15 @@ final result line):
    ``d4_augment`` on the card's generator;
    then the conv probe (``utils/conv_probe.py``) at full width with K4's
    launch counts;
+   then the measurement entry points (``drive_benches``), each through its
+   ``main`` and cut in depth: ``bench`` (the headline train img/s with its
+   MFU and kernel check; K1 once each way a step), ``scripts.ab_bench``
+   "adamw" against "pallas_adamw" (K2 once a step), ``scripts.floor_bench``
+   (the component ladder), ``scripts.serve_bench``,
+   ``scripts.megapixel_bench`` (the one-card 1024x1024 step with
+   ``UNet(remat=True)`` and without: equal losses, a lower peak with remat;
+   K1 on the whole field) and ``scripts.sweep_bench`` (3 members, batched
+   and serial); every line they print must parse;
 10. time the kernels, their plain versions, the library's calls (fused
    AdamW, ``F.conv2d`` and its weight gradient) and
    steady-state Stage II training with "adamw" and "pallas_adamw", with
@@ -221,6 +230,7 @@ def check_kernels() -> dict:
     cases = [
         ("train shape (8,128,128)", (8, 128, 128), {}, True),
         ("row tiling (2,512,512)", (2, 512, 512), {}, True),
+        ("megapixel field (1,1024,1024)", (1, 1024, 1024), {}, True),
         ("odd size (3,17,23)", (3, 17, 23), {}, True),
         ("masked slots (4,32,32)", (4, 32, 32), {"mask": [1, 0, 1, 0]}, True),
         ("saturated u (2,16,16)", (2, 16, 16), {"saturated": True}, True),
@@ -1758,6 +1768,146 @@ def drive_probe() -> dict:
     return {"res": res, "counts": counts}
 
 
+# The bench's analytic FLOPs at base 64, 128x128, batch 8, the count of the
+# JAX repo's root bench.py at its defaults.
+BENCH_FLOPS_AT_DEFAULTS = 544_890_421_248
+REMAT_LOSS_RTOL = 1e-6
+
+
+def run_script(main, argv) -> list:
+    """A measurement script's ``main(argv)`` in this process: its standard
+    output echoed, and every line of it parsed as JSON."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    check(rc == 0, f"{main.__module__} {argv} returned {rc}")
+    lines = [json.loads(line) for line in text.splitlines()]
+    check(bool(lines), f"{main.__module__} {argv} printed nothing")
+    return lines
+
+
+def reset_kernel_counts() -> None:
+    from physics_informed_image_segmentation_tpu_torch.ops import padded_physics_kernel as K3
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K1
+    from physics_informed_image_segmentation_tpu_torch.train import adamw_kernel as K2
+
+    for k in (K1, K2, K3):
+        k.reset_launch_counts()
+
+
+def drive_benches(smi: str) -> dict:
+    """The measurement entry points on the card, each cut in depth and run
+    through its ``main`` as a user runs it: ``bench`` (64 images, 1 warm-up
+    and 2 timed calls of 2 epochs; its kernel check), ``scripts.ab_bench``
+    "adamw" against "pallas_adamw" (1 warm-up and 2 turns of 1 epoch),
+    ``scripts.floor_bench`` (8 steps a rung), ``scripts.serve_bench`` (128
+    images, batch 32), ``scripts.megapixel_bench`` (1024x1024, 2 steps, remat
+    on and off) and ``scripts.sweep_bench`` (3 members, 1 epoch).  Every
+    line they print must parse; K1's and K2's launches are counted around
+    each run against the steps it took."""
+    from physics_informed_image_segmentation_tpu_torch import bench
+    from physics_informed_image_segmentation_tpu_torch.scripts import (
+        ab_bench, floor_bench, megapixel_bench, serve_bench, sweep_bench,
+    )
+    from physics_informed_image_segmentation_tpu_torch.utils.measure import launch_counts
+
+    out = {}
+    t0 = time.perf_counter()
+    check(bench.analytic_flops_per_step() == BENCH_FLOPS_AT_DEFAULTS,
+          f"analytic FLOPs {bench.analytic_flops_per_step()} at the defaults")
+
+    reset_kernel_counts()
+    (line,) = run_script(bench.main, ["--images", "64", "--warmup", "1", "--rounds", "2",
+                                      "--epochs", "2"])
+    torch.cuda.synchronize()
+    total = launch_counts()
+    steps = (1 + 2) * 2 * (64 // 8)
+    # the kernel check compares K1 and K3 with their plain versions, one
+    # launch each way: a comparison, not the path
+    checked = {"physics_sums_fwd": 1, "physics_sums_bwd": 1, "padded_physics_fwd": 1,
+               "padded_physics_bwd": 1}
+    counts = {k: v - checked.get(k, 0) for k, v in total.items()}
+    print(f"bench path: {steps} train steps; launches {counts} ({total} with the kernel check)")
+    check(counts["physics_sums_fwd"] == steps and counts["physics_sums_bwd"] == steps,
+          f"bench: K1 launches {total}, expected {steps} / {steps} and the check's")
+    check(counts["padded_physics_fwd"] == 0 and counts["padded_physics_bwd"] == 0,
+          f"bench: K3 launches {total}, expected the check's alone")
+    check(line["metric"] == "train_images_per_sec_per_chip" and line["kernel_check"] == "pass"
+          and line["physics_backend"] == "cuda", f"bench line {line}")
+    check(line["flops_per_step"] == BENCH_FLOPS_AT_DEFAULTS, "bench flops_per_step")
+    check(line["launches_per_step"]["physics_sums_fwd"] == 1
+          and line["launches_per_step"]["physics_sums_bwd"] == 1, "bench launches a step")
+    if "H100" in torch.cuda.get_device_name(0):
+        check(line["mfu"] is not None and 0 < line["mfu"] < 1, f"bench mfu {line['mfu']}")
+    check(all(np.isfinite(v) and v > 0 for v in line["rounds"]), f"bench rounds {line}")
+    out["bench"] = {"line": line, "counts": counts}
+
+    reset_kernel_counts()
+    lines = run_script(ab_bench.main, ["adamw", "pallas_adamw", "--images", "64", "--warmup",
+                                       "1", "--rounds", "2", "--epochs", "1"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = (1 + 2) * (64 // 8)
+    print(f"ab_bench path: {steps} train steps a variant; launches {counts}")
+    check(counts["adamw"] == steps, f"ab_bench: K2 launches {counts}, expected {steps}")
+    check(counts["physics_sums_fwd"] == 2 * steps and counts["physics_sums_bwd"] == 2 * steps,
+          f"ab_bench: K1 launches {counts}")
+    check(len(lines) == 3 and lines[1]["launches_per_step"]["adamw"] == 1
+          and lines[0]["launches_per_step"]["adamw"] == 0, f"ab_bench lines {lines}")
+    out["ab_bench"] = {"lines": lines, "counts": counts}
+
+    reset_kernel_counts()
+    lines = run_script(floor_bench.main, ["--steps", "8"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = (floor_bench.WARMUP + floor_bench.TIMED) * 8
+    check(counts["physics_sums_fwd"] == 3 * steps and counts["physics_sums_bwd"] == 3 * steps,
+          f"floor_bench: K1 launches {counts}, expected {3 * steps} (loss, opt, full)")
+    ladder = lines[-1]["floor_ms_per_step"]
+    check(list(ladder) == list(floor_bench.RUNGS) and all(v > 0 for v in ladder.values()),
+          f"floor_bench ladder {ladder}")
+    out["floor_bench"] = {"ladder": ladder, "counts": counts}
+
+    lines = run_script(serve_bench.main, ["--images", "128", "--batch-size", "32"])
+    check([ln["mode"] for ln in lines] == ["plain", "tta"], f"serve_bench lines {lines}")
+    out["serve_bench"] = lines
+
+    reset_kernel_counts()
+    lines = run_script(megapixel_bench.main, ["1024", "2"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    on, off = lines
+    check("error" not in on and "error" not in off, f"megapixel_bench: {lines}")
+    check(counts["physics_sums_fwd"] == 8 and counts["physics_sums_bwd"] == 8,
+          f"megapixel_bench: K1 launches {counts}, expected 8 / 8 (a warm-up step and 3 "
+          f"steps, remat on and off)")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(on["losses"], off["losses"]))
+    print(f"megapixel_bench: remat against no remat, losses {gap:.3e} relative; peak above the "
+          f"start {on['peak_above_start_bytes']} against {off['peak_above_start_bytes']} bytes")
+    check(gap <= REMAT_LOSS_RTOL, f"remat changes the losses by {gap:.3e}")
+    check(on["peak_above_start_bytes"] < off["peak_above_start_bytes"],
+          "remat does not lower the peak memory")
+    out["megapixel_bench"] = {"lines": lines, "counts": counts, "loss_gap": gap}
+
+    reset_kernel_counts()
+    lines = run_script(sweep_bench.main, ["--members", "3", "--epochs", "1"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    train_b, val_b = -(-sweep_bench.N_TRAIN // 8), -(-sweep_bench.N_VAL // 8)
+    # batched and serial, cold and warm: each member once a step each way
+    exp_fwd, exp_bwd = 2 * 2 * 3 * (train_b + val_b), 2 * 2 * 3 * train_b
+    check(counts["physics_sums_fwd"] == exp_fwd and counts["physics_sums_bwd"] == exp_bwd,
+          f"sweep_bench: K1 launches {counts}, expected {exp_fwd} / {exp_bwd}")
+    check([ln.get("mode") for ln in lines[:2]] == ["batched", "serial"],
+          f"sweep_bench lines {lines}")
+    out["sweep_bench"] = {"lines": lines, "counts": counts}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"drive_benches: {out['seconds']:.1f} s  [{smi}]")
+    return out
+
+
 def k4_bound_ms(shape, itemsize: int, dw: bool) -> tuple[float, str]:
     """Least time for K4's work: the forward reads x and w and writes out,
     dW reads x and g and writes the float32 (9, Cin, Cout); or the
@@ -2267,7 +2417,7 @@ def time_kernels() -> dict:
     from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K
 
     out = {}
-    for shape in ((8, 128, 128), (8, 512, 512)):
+    for shape in ((8, 128, 128), (8, 512, 512), (1, 1024, 1024)):
         u, t, m, cot = make_case(shape, seed=100)
         args = (D, A, EPS, True)
         # the tensors are bound now: the device-time readings call these after the loop
@@ -2452,36 +2602,22 @@ def check_profiler_cost() -> dict:
 
 
 def time_training(optimizer: str) -> float:
-    """Steady-state Stage II train img/s at full width (bf16, batch 8)."""
-    from physics_informed_image_segmentation_tpu_torch import UNet
-    from physics_informed_image_segmentation_tpu_torch.data import (
-        DeviceDataset, epoch_batch_indices, make_blobs,
-    )
-    from physics_informed_image_segmentation_tpu_torch.train import (
-        LossConfig, create_train_state, make_train_epoch_fn,
-    )
+    """Steady-state Stage II train img/s at full width: the bench's
+    workload (``bench.make_workload``: base 64, 128x128, batch 8, bf16, lr
+    1e-4, metrics on) cut to 64 images, one epoch a call."""
+    from physics_informed_image_segmentation_tpu_torch import bench
 
-    n, batch = 64, 8
-    images, masks = make_blobs(n, 128, 128, seed=1)
-    data = DeviceDataset.from_numpy(images, masks, "cuda")
-    model = UNet(base_channels=64, generator=torch.Generator().manual_seed(0)).cuda()
-    state = create_train_state(model, 1e-5, optimizer=optimizer)
-    cfg = LossConfig(**STAGE2)
-    epoch_fn = make_train_epoch_fn(cfg, precision="bf16")
-    gen = torch.Generator().manual_seed(0)
+    n = 64
+    wl = bench.make_workload("cuda", n_images=n, epochs=1, optimizer=optimizer, calls="epoch")
     rates = []
     for i in range(4):  # the first epoch is warm-up
-        idx, valid = epoch_batch_indices(n, batch, shuffle=True, generator=gen, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, res = epoch_fn(state, data.images, data.masks, idx, valid)
-        torch.cuda.synchronize()
+        seconds, _ = bench.timed_call(wl, torch.device("cuda"))
         if i > 0:
-            rates.append(n / (time.perf_counter() - t0))
-        check(np.isfinite(res["loss"]), "Stage II timing epoch loss not finite")
+            rates.append(n / seconds)
     rate = statistics.median(rates)
     print(f"Stage II train steady state, {optimizer}: {rate:.1f} img/s (median of {len(rates)} "
-          f"epochs of {n // batch} steps; base_channels 64, 128x128, batch {batch}, bf16)")
+          f"epochs of {wl.steps_per_call} steps; base_channels 64, 128x128, "
+          f"batch {bench.BATCH_SIZE}, bf16)")
     return rate
 
 
@@ -2532,6 +2668,7 @@ def main() -> int:
     parallel = drive_parallel_paths(smi)
     streaming = drive_streaming(smi)
     probe = drive_probe()
+    benches = drive_benches(smi)
     times = time_kernels()
     k3_times = time_k3()
     k4_times = time_k4()
@@ -2555,6 +2692,8 @@ def main() -> int:
          "compat_launches": compat["counts"]["physics_sums_fwd"],
          "streaming_launches": streaming["counts"]["physics_sums_fwd"],
          "spatial_epochs_launches": parallel["spatial"]["counts"]["physics_sums_fwd"],
+         "bench_launches": benches["bench"]["counts"]["physics_sums_fwd"],
+         "megapixel_launches": benches["megapixel_bench"]["counts"]["physics_sums_fwd"],
          "max_abs_err": errors["physics_sums_fwd"],
          "ms": main_shape["fwd"], "plain_ms": main_shape["plain_fwd"],
          "bound_ms": main_shape["bound_fwd"], "bound_by": main_shape["bound_fwd_by"],
@@ -2566,6 +2705,8 @@ def main() -> int:
          "compat_launches": compat["counts"]["physics_sums_bwd"],
          "streaming_launches": streaming["counts"]["physics_sums_bwd"],
          "spatial_epochs_launches": parallel["spatial"]["counts"]["physics_sums_bwd"],
+         "bench_launches": benches["bench"]["counts"]["physics_sums_bwd"],
+         "megapixel_launches": benches["megapixel_bench"]["counts"]["physics_sums_bwd"],
          "max_abs_err": errors["physics_sums_bwd"],
          "ms": main_shape["bwd"], "plain_ms": main_shape["plain_bwd"],
          "bound_ms": main_shape["bound_bwd"], "bound_by": main_shape["bound_bwd_by"],
@@ -2573,6 +2714,7 @@ def main() -> int:
         {"name": "adamw", "route": "cuda", "source": f"{PKG}/csrc/adamw.cu",
          "replaces": "physics_informed_image_segmentation_tpu/train/pallas_optim.py:118",
          "launches": k2_counts["adamw"], "streaming_launches": streaming["counts"]["adamw"],
+         "bench_launches": benches["ab_bench"]["counts"]["adamw"],
          "max_abs_err": errors["adamw"],
          "ms": k2_times["kernel"], "plain_ms": k2_times["plain"],
          "bound_ms": k2_times["bound"], "bound_by": k2_times["bound_by"],
@@ -2631,6 +2773,7 @@ def main() -> int:
     print(json.dumps({"experiments": experiments}))
     print(json.dumps({"sweep": sweep}))
     print(json.dumps({"compat": compat}))
+    print(json.dumps({"benches": benches, "card": smi}))
     spatial = parallel["spatial"]
     print(json.dumps({"spatial_epochs": {k: spatial[k] for k in (
         "counts", "seconds", "peak_bytes", "peak_above_start_bytes", "vs_unsharded")},

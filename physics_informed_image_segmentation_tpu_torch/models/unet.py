@@ -25,6 +25,16 @@ as a forward under ``torch.func.vmap`` must.  The output conv runs in the
 autocast type and is cast to float32 before the output activation, so the
 probability map (and every loss computed on it) is float32 (float64 for a
 float64 model).
+
+``remat=True`` (the JAX package's ``nn.remat(DoubleConv)``) keeps only each
+block's input for the backward pass and recomputes its activations there
+(``torch.utils.checkpoint``, non-reentrant, which carries the autocast
+state into the recompute): less activation memory for about one more
+forward of each block.  A recompute must reuse the forward's dropout
+masks, and ``checkpoint`` restores only the global RNG states, not an
+explicit ``torch.Generator``: so the masks of a training forward are drawn
+before any block runs (:func:`draw_dropout_masks`, the same draws in the
+same order) and handed to the checkpointed blocks.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["UNet", "DoubleConv", "count_parameters", "draw_dropout_masks", "mish",
            "ACTIVATIONS"]
@@ -153,7 +164,9 @@ class UNet(nn.Module):
     kernels with variance 1/fan_in, zero biases) or ``"torch"`` (torch's
     own Conv2d/ConvTranspose2d family: uniform kernels with variance
     1/(3·fan), uniform ±1/√fan biases).  ``generator`` makes the init
-    reproducible.
+    reproducible.  ``remat``: recompute each block's activations in the
+    backward pass of a training forward (module docstring); the parameters
+    and ``state_dict`` keys are the same either way.
     """
 
     def __init__(
@@ -166,6 +179,7 @@ class UNet(nn.Module):
         intermediate_activation: str = "relu",
         param_init: str = "lecun",
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
     ):
         super().__init__()
         if output_activation.lower() not in ("sigmoid", "tanh"):
@@ -178,6 +192,7 @@ class UNet(nn.Module):
                 f"Unsupported param_init: {param_init!r}. Must be 'lecun' or 'torch'"
             )
         self.output_activation = output_activation.lower()
+        self.remat = remat
         c, d, act = base_channels, dropout, intermediate_activation
         self.enc1 = DoubleConv(in_channels, c, 0.0, act)
         self.enc2 = DoubleConv(c, c * 2, d * 0.5, act)
@@ -227,16 +242,29 @@ class UNet(nn.Module):
         """``dropout_masks``: keep masks by block name, drawn beforehand
         (:func:`draw_dropout_masks`); dropout then draws nothing from
         ``generator``."""
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        if remat and dropout_masks is None:
+            dropout_masks = draw_dropout_masks(self, x.shape[0], generator, x.device)
         keep = dropout_masks or {}
-        e1 = self.enc1(x, generator, keep.get("enc1"))
-        e2 = self.enc2(self.pool(e1), generator, keep.get("enc2"))
-        e3 = self.enc3(self.pool(e2), generator, keep.get("enc3"))
-        e4 = self.enc4(self.pool(e3), generator, keep.get("enc4"))
-        b = self.bottleneck(self.pool(e4), generator, keep.get("bottleneck"))
-        d4 = self.dec4(torch.cat([self.up4(b), e4], dim=1), generator, keep.get("dec4"))
-        d3 = self.dec3(torch.cat([self.up3(d4), e3], dim=1), generator, keep.get("dec3"))
-        d2 = self.dec2(torch.cat([self.up2(d3), e2], dim=1), generator, keep.get("dec2"))
-        d1 = self.dec1(torch.cat([self.up1(d2), e1], dim=1), generator, keep.get("dec1"))
+
+        def block(name, h):
+            blk, k = getattr(self, name), keep.get(name)
+            if remat:
+                # the masks are drawn already: the block draws nothing, so
+                # no RNG state needs saving for its recompute
+                return checkpoint(blk, h, None, k, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return blk(h, generator, k)
+
+        e1 = block("enc1", x)
+        e2 = block("enc2", self.pool(e1))
+        e3 = block("enc3", self.pool(e2))
+        e4 = block("enc4", self.pool(e3))
+        b = block("bottleneck", self.pool(e4))
+        d4 = block("dec4", torch.cat([self.up4(b), e4], dim=1))
+        d3 = block("dec3", torch.cat([self.up3(d4), e3], dim=1))
+        d2 = block("dec2", torch.cat([self.up2(d3), e2], dim=1))
+        d1 = block("dec1", torch.cat([self.up1(d2), e1], dim=1))
         out = self.out_conv(d1)
         out = out.to(torch.promote_types(out.dtype, torch.float32))
         if self.output_activation == "sigmoid":

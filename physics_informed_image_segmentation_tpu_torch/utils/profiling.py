@@ -23,22 +23,31 @@ import torch
 __all__ = ["trace", "sync", "StepTimer", "ThroughputMeter"]
 
 
-def _has_cuda_tensor(value) -> bool:
+def _cuda_device(value) -> Optional[torch.device]:
+    """The CUDA device of ``value`` (a device, or the first CUDA tensor it
+    holds), else None."""
+    if isinstance(value, torch.device):
+        return value if value.type == "cuda" else None
     if isinstance(value, torch.Tensor):
-        return value.is_cuda
+        return value.device if value.is_cuda else None
     if isinstance(value, dict):
-        return any(_has_cuda_tensor(v) for v in value.values())
+        value = list(value.values())
     if isinstance(value, (list, tuple)):
-        return any(_has_cuda_tensor(v) for v in value)
-    return False
+        for v in value:
+            dev = _cuda_device(v)
+            if dev is not None:
+                return dev
+    return None
 
 
 def sync(value=None) -> None:
-    """Wait for pending device work: ``torch.cuda.synchronize()`` when
-    ``value`` holds a CUDA tensor (or, with no value, when CUDA is in use);
-    CPU work is already done when its call returns."""
-    if _has_cuda_tensor(value) or (value is None and torch.cuda.is_initialized()):
-        torch.cuda.synchronize()
+    """Wait for pending device work: ``torch.cuda.synchronize`` of the
+    device of ``value`` (a ``torch.device``, or the first CUDA tensor it
+    holds), or of the current device when there is no value and CUDA is
+    in use; CPU work is already done when its call returns."""
+    dev = _cuda_device(value)
+    if dev is not None or (value is None and torch.cuda.is_initialized()):
+        torch.cuda.synchronize(dev)
 
 
 @contextlib.contextmanager

@@ -722,3 +722,54 @@ def test_compat_loss_launches_k1_once_each_way(cuda, layout):
     torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
     assert torch.all((grad_k - grad_p).abs()
                      <= 1e-6 * grad_p.abs().max() + 1e-5 * grad_p.abs())
+
+
+def test_remat_is_bit_equal_under_bf16_autocast_on_the_card(cuda):
+    """``UNet(remat=True)`` against ``remat=False`` on the card under bf16
+    autocast, training with dropout 0.2 from a generator on the card,
+    deterministic cuDNN and TF32 off: the forward, the input's and every
+    parameter's gradient bit-equal, the generator in the same state.  A
+    recompute outside autocast, or with other dropout masks, would give
+    other gradients."""
+    from physics_informed_image_segmentation_tpu_torch.models import UNet
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = []
+        for remat in (False, True):
+            model = UNet(base_channels=16, remat=remat,
+                         generator=torch.Generator().manual_seed(0)).to(cuda).train()
+            gen = torch.Generator(device=cuda).manual_seed(7)
+            x = torch.rand((2, 1, 64, 64), generator=torch.Generator().manual_seed(1))
+            x = x.to(cuda).requires_grad_(True)
+            w = torch.randn((2, 1, 64, 64), generator=torch.Generator().manual_seed(2)).to(cuda)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out = model(x, gen)
+            (out * w).sum().backward()
+            torch.cuda.synchronize()
+            runs.append((out.detach(), x.grad, [p.grad for p in model.parameters()],
+                         gen.get_state()))
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = saved
+    (o1, x1, g1, s1), (o2, x2, g2, s2) = runs
+    assert torch.equal(o1, o2) and torch.equal(x1, x2) and torch.equal(s1, s2)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", ["k1", "k3"])
+def test_bench_kernel_check_fails_loudly_on_a_wrong_plain_version(cuda, which):
+    """The bench's kernel check passes against the true plain versions and
+    raises when handed a plain version that is off by 1e-3 relative."""
+    from physics_informed_image_segmentation_tpu_torch import bench
+
+    errors = bench.kernel_check()
+    assert set(errors) == {"k1_sums", "k1_grad", "k3_sums", "k3_grad"}
+    plain = {"k1": K.fused_physics_sums_reference, "k3": K3.padded_physics_sums_reference}[which]
+    wrong = {f"{which}_plain": lambda *args: plain(*args) * 1.001}
+    with pytest.raises(RuntimeError, match=f"kernel_check: {which}"):
+        bench.kernel_check(**wrong)
