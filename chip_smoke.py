@@ -81,9 +81,8 @@ final result line):
    ``chunk_batches`` → ``prefetch_to_device`` with pinned memory and a side
    stream → ``make_train_chunk_fn``, "pallas_adamw", base 64, bf16) with
    K1's and K2's launch counts (no K2 launch on a padding step), its f32
-   run against the resident epoch on the same order, streamed against
-   resident img/s in turns (``StepTimer``, ``ThroughputMeter``), and
-   ``d4_augment`` on the card's generator;
+   run against the resident epoch on the same order, and ``d4_augment`` on
+   the card's generator;
    then the conv probe (``utils/conv_probe.py``) at full width with K4's
    launch counts;
    then the measurement entry points (``drive_benches``), each through its
@@ -95,6 +94,16 @@ final result line):
    ``UNet(remat=True)`` and without: equal losses, a lower peak with remat;
    K1 on the whole field) and ``scripts.sweep_bench`` (3 members, batched
    and serial); every line they print must parse;
+   then the JAX repo's last entry points: ``scripts.ablation_burnin``
+   (``--ablation R1`` through the CLI in fresh processes, 8/4/4+4 images,
+   1+1 epochs: uninterrupted, then SIGKILLed with 1-3 of R1's 4 variant
+   JSONs written and resumed with ``--resume latest``; the aggregates
+   bit-equal, K1's counts as each process printed them),
+   ``scripts.stream_train`` (the resident, stream-step and stream-chunk-16
+   rows at 64 images, one round; K1 once each way a real step),
+   ``scripts.quant_probe`` (the int8 convolution exact against float64, and
+   one stage shape) and ``examples.quickstart_synthetic`` (8/4/4 images,
+   1+1 epochs: finite Dice, 4 masks, K1 2 / 1);
 10. time the kernels, their plain versions, the library's calls (fused
    AdamW, ``F.conv2d`` and its weight gradient) and
    steady-state Stage II training with "adamw" and "pallas_adamw", with
@@ -2227,6 +2236,122 @@ def drive_parallel_paths(smi: str) -> dict:
 STREAM_N, STREAM_BATCH, STREAM_K = 40, 8, 4  # 5 steps: a chunk of 4, then 1 + 3 padding
 
 
+BURNIN_IMAGES = (8, 4, 4, 4)  # training, validation, in_dist, out_dist
+
+
+def drive_burnin(smi: str) -> dict:
+    """The ``--ablation`` crash/resume burn-in (``scripts.ablation_burnin``)
+    at full width (base 64, 128x128, bf16), cut in depth: ``--ablation R1``,
+    8/4/4+4 images, 1+1 epochs, each run a fresh process of the CLI under
+    the script's launch.  Run A uninterrupted; run B SIGKILLed once R1 has
+    written its first variant JSON (1-3 of 4 at the kill), then relaunched
+    with ``--resume latest``; the aggregates must be bit-equal after the
+    JAX script's path and timestamp fields.  K1's launches are the counts
+    each finished process printed: 2 / 1 a physics variant (one train step
+    and one validation batch), none in a killed process."""
+    from physics_informed_image_segmentation_tpu_torch.scripts import ablation_burnin as burnin
+
+    t0 = time.perf_counter()
+    scratch = REPO / "build"  # git-ignored
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        cfg = burnin.Burnin(data_root=Path(tmp) / "data", work=Path(tmp) / "work",
+                            ablation="R1", images=BURNIN_IMAGES, epochs=1)
+        facts = {"card": smi}
+        burnin.make_data(cfg)
+        cfg.work.mkdir()
+        a = burnin.run_a(cfg, facts)
+        b = burnin.run_b(cfg, facts)
+        line = burnin.report(cfg, facts)
+    n_var = len(burnin.ALL_STUDIES["R1"]())
+    check(1 <= b["variants_at_kill"] < n_var,
+          f"burn-in: the kill landed with {b['variants_at_kill']} R1 variants written")
+    check(line["report"] == "1/1", f"burn-in report {line}")
+    (ka,), (kb,) = a["k1_launches"], b["k1_launches"]
+    retrained = n_var - b["variants_at_kill"]  # R1.0, the one without physics, runs first
+    check(ka == {"physics_sums_fwd": 6, "physics_sums_bwd": 3},
+          f"burn-in run A: K1 launches {ka}, expected 6 / 3 (R1.1-R1.3)")
+    check(kb == {"physics_sums_fwd": 2 * retrained, "physics_sums_bwd": retrained},
+          f"burn-in run B resumed: K1 launches {kb}, expected {2 * retrained} / {retrained}")
+    seconds = time.perf_counter() - t0
+    print(f"drive_burnin: R1 killed with {b['variants_at_kill']} of {n_var} variants written and "
+          f"resumed, aggregate bit-equal to the uninterrupted run; K1 {ka} / {kb}; launch "
+          f"{a['launch']}; {seconds:.1f} s  [{smi}]")
+    return {"run_a": a, "run_b": b, "report": line, "seconds": seconds}
+
+
+def drive_stream_rows(smi: str) -> dict:
+    """``scripts.stream_train`` through its ``main`` at full width, cut to
+    64 images and one round: resident, stream-step and stream-chunk-16, each
+    with K1 once each way a real step."""
+    from physics_informed_image_segmentation_tpu_torch.scripts import stream_train
+    from physics_informed_image_segmentation_tpu_torch.utils.measure import launch_counts
+
+    t0 = time.perf_counter()
+    n = 64
+    reset_kernel_counts()
+    lines = run_script(stream_train.main, ["--images", str(n), "--rounds", "1"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps = sum(w + t for w, t in stream_train.EPOCHS.values()) * (n // 8)
+    check([ln["row"] for ln in lines] == list(stream_train.ROWS), f"stream_train lines {lines}")
+    for ln in lines:
+        check(ln["k1_launches_per_step"] == {"physics_sums_fwd": 1.0, "physics_sums_bwd": 1.0},
+              f"stream_train {ln['row']}: K1 launches a step {ln['k1_launches_per_step']}")
+        check(ln["images_a_round"] == [n * ln["timed_epochs"]] and ln["value"] > 0,
+              f"stream_train {ln['row']}: {ln}")
+    check(counts["physics_sums_fwd"] == steps and counts["physics_sums_bwd"] == steps,
+          f"stream_train: K1 launches {counts}, expected {steps} / {steps}")
+    seconds = time.perf_counter() - t0
+    print(f"drive_stream_rows: {steps} real steps, K1 {counts['physics_sums_fwd']} / "
+          f"{counts['physics_sums_bwd']}; img/s "
+          f"{ {ln['row']: round(ln['value'], 1) for ln in lines} }; {seconds:.1f} s  [{smi}]")
+    return {"lines": lines, "counts": counts, "seconds": seconds}
+
+
+def drive_quant(smi: str) -> dict:
+    """``scripts.quant_probe``: the int8 convolution against float64 (error
+    exactly 0) and the four rows at one stage shape, (128,16,16,512->512)."""
+    from physics_informed_image_segmentation_tpu_torch.scripts import quant_probe
+
+    t0 = time.perf_counter()
+    check_line, shape_line = run_script(quant_probe.main, ["--shapes", "3"])
+    check(check_line["max_abs_err"] == 0.0, f"int8 conv error {check_line['max_abs_err']}")
+    check(shape_line["shape"] == list(quant_probe.SHAPES[3])
+          and all(r["ms"] > 0 for r in shape_line["rows"].values()), f"quant_probe {shape_line}")
+    seconds = time.perf_counter() - t0
+    print(f"drive_quant: int8 conv exact; at {shape_line['shape']} int8/bf16 speed "
+          f"{shape_line['int8_over_bf16_speed']}; {seconds:.1f} s  [{smi}]")
+    return {"check": check_line, "shape": shape_line, "seconds": seconds}
+
+
+def drive_quickstart(smi: str) -> dict:
+    """``examples.quickstart_synthetic.main`` at full width, cut to 8/4/4
+    images and 1+1 epochs: finite Dice, 4 masks written, K1 2 / 1 (Stage
+    II's train step and validation batch)."""
+    from physics_informed_image_segmentation_tpu_torch.examples import quickstart_synthetic
+    from physics_informed_image_segmentation_tpu_torch.ops import physics_kernel as K1
+
+    t0 = time.perf_counter()
+    scratch = REPO / "build"  # git-ignored
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        K1.reset_launch_counts()
+        with quiet():
+            res = quickstart_synthetic.main(Path(tmp) / "run", "cuda", n_train=8, n_val=4,
+                                            n_test=4, stage1_epochs=1, stage2_epochs=1)
+        torch.cuda.synchronize()
+        counts = dict(K1.launch_counts)
+        masks = [p for p in res["masks"] if p.exists()]
+    check(all(np.isfinite(v) for v in res["dice"].values()), f"quickstart Dice {res['dice']}")
+    check(len(masks) == 4, f"quickstart wrote {len(masks)} masks, expected 4")
+    check(counts == {"physics_sums_fwd": 2, "physics_sums_bwd": 1},
+          f"quickstart: K1 launches {counts}, expected 2 / 1")
+    seconds = time.perf_counter() - t0
+    print(f"drive_quickstart: Dice {res['dice']}, 4 masks, K1 {counts}; {seconds:.1f} s  [{smi}]")
+    return {"dice": res["dice"], "counts": counts, "seconds": seconds}
+
+
 def drive_streaming(smi: str) -> dict:
     """The streamed path at full width: ``HostDataset`` of ``make_blobs``
     (128x128) → ``batch_iterator`` (batch 8) → ``chunk_batches(k=4)`` (the
@@ -2234,8 +2359,8 @@ def drive_streaming(smi: str) -> dict:
     → ``make_train_chunk_fn`` with the Stage II objective and
     "pallas_adamw", base 64, bf16: K1 once each way a real step, K2 once a
     real step and never on a padding step.  Then f32, dropout 0: the
-    streamed chunks against the resident epoch on the same order; streamed
-    against resident img/s in turns; D4 codes drawn on the card."""
+    streamed chunks against the resident epoch on the same order; D4 codes
+    drawn on the card.  The streamed rows are timed in ``drive_stream_rows``."""
     from physics_informed_image_segmentation_tpu_torch import UNet
     from physics_informed_image_segmentation_tpu_torch.data import (
         DeviceDataset, HostDataset, batch_iterator, chunk_batches, d4_augment, make_blobs,
@@ -2248,25 +2373,17 @@ def drive_streaming(smi: str) -> dict:
         make_train_step_fn,
     )
     from physics_informed_image_segmentation_tpu_torch.train import adamw_kernel as K2
-    from physics_informed_image_segmentation_tpu_torch.utils.profiling import (
-        StepTimer, ThroughputMeter,
-    )
 
     cfg = LossConfig(**STAGE2)
     images, masks = make_blobs(STREAM_N, 128, 128, seed=30)
     host = HostDataset(STREAM_N, images, masks)
     real = -(-STREAM_N // STREAM_BATCH)
 
-    def streamed(state, chunk_fn, data=host, timer=None):
+    def streamed(state, chunk_fn):
         outs = []
-        batches = batch_iterator(data, STREAM_BATCH, shuffle=True, seed=0, epoch=0)
+        batches = batch_iterator(host, STREAM_BATCH, shuffle=True, seed=0, epoch=0)
         for xs, ys, vs in prefetch_to_device(chunk_batches(batches, STREAM_K), device="cuda"):
-            if timer is None:
-                state, out = chunk_fn(state, xs, ys, vs)
-            else:
-                with timer.step():
-                    state, out = chunk_fn(state, xs, ys, vs)
-                    timer.sync(out)
+            state, out = chunk_fn(state, xs, ys, vs)
             outs.append(out)
         return state, outs
 
@@ -2329,35 +2446,6 @@ def drive_streaming(smi: str) -> dict:
     check(abs(ls - lr_) <= 1e-5 * abs(lr_) and gap <= 1e-3 * move,
           "the streamed chunks differ from the resident epoch beyond rounding")
 
-    # img/s of streamed chunks and of the resident epoch, in turns A/B/B/A
-    n_t = 64
-    t_images, t_masks = make_blobs(n_t, 128, 128, seed=31)
-    t_host = HostDataset(n_t, t_images, t_masks)
-    t_data = DeviceDataset.from_numpy(t_images, t_masks, "cuda")
-    idx, valid = resident_plan(n_t)
-    chunk_fn = make_train_chunk_fn(cfg, precision="bf16")
-    epoch_fn = make_train_epoch_fn(cfg, precision="bf16")
-    state = create_train_state(unet64(), 1e-5, optimizer="pallas_adamw")
-    rates = {"streamed": [], "resident": []}
-    timer = StepTimer(warmup=1)
-    for turn in ("warm-up", "streamed", "resident", "resident", "streamed"):
-        torch.cuda.synchronize()
-        meter = ThroughputMeter()
-        meter.start()
-        if turn in ("warm-up", "streamed"):
-            state, _ = streamed(state, chunk_fn, t_host, timer if turn == "streamed" else None)
-        if turn in ("warm-up", "resident"):
-            state, _ = epoch_fn(state, t_data.images, t_data.masks, idx, valid)
-        torch.cuda.synchronize()
-        meter.add(n_t)
-        if turn != "warm-up":
-            rates[turn].append(meter.images_per_sec)
-    print(f"img/s, turns streamed / resident / resident / streamed ({n_t} images, batch "
-          f"{STREAM_BATCH}, chunks of {STREAM_K}, pallas_adamw, base 64, 128x128, bf16): "
-          f"streamed {[round(r, 1) for r in rates['streamed']]}, resident "
-          f"{[round(r, 1) for r in rates['resident']]}; a streamed chunk p50 "
-          f"{timer.p50_ms:.2f} ms, p99 {timer.p99_ms:.2f} ms over {len(timer.times)}; {smi}")
-
     # D4 codes drawn on the card's generator, the same to image and mask
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -2377,8 +2465,7 @@ def drive_streaming(smi: str) -> dict:
     print(f"d4_augment on the card: codes {codes}, image and mask alike; a step with "
           f"augment=d4_augment trained")
     return {"counts": counts, "stream_vs_resident": {"dloss": abs(ls - lr_), "dparams": gap,
-                                                     "movement": move},
-            "img_per_s": rates, "chunk_ms_p50": timer.p50_ms, "card": smi}
+                                                     "movement": move}, "card": smi}
 
 
 def time_cuda(fn, warmup=5, reps=30) -> float:
@@ -2669,6 +2756,10 @@ def main() -> int:
     streaming = drive_streaming(smi)
     probe = drive_probe()
     benches = drive_benches(smi)
+    burnin = drive_burnin(smi)
+    stream_rows = drive_stream_rows(smi)
+    quant = drive_quant(smi)
+    quickstart = drive_quickstart(smi)
     times = time_kernels()
     k3_times = time_k3()
     k4_times = time_k4()
@@ -2694,6 +2785,10 @@ def main() -> int:
          "spatial_epochs_launches": parallel["spatial"]["counts"]["physics_sums_fwd"],
          "bench_launches": benches["bench"]["counts"]["physics_sums_fwd"],
          "megapixel_launches": benches["megapixel_bench"]["counts"]["physics_sums_fwd"],
+         "burnin_launches": [burnin[r]["k1_launches"][0]["physics_sums_fwd"]
+                             for r in ("run_a", "run_b")],
+         "stream_rows_launches": stream_rows["counts"]["physics_sums_fwd"],
+         "quickstart_launches": quickstart["counts"]["physics_sums_fwd"],
          "max_abs_err": errors["physics_sums_fwd"],
          "ms": main_shape["fwd"], "plain_ms": main_shape["plain_fwd"],
          "bound_ms": main_shape["bound_fwd"], "bound_by": main_shape["bound_fwd_by"],
@@ -2707,6 +2802,10 @@ def main() -> int:
          "spatial_epochs_launches": parallel["spatial"]["counts"]["physics_sums_bwd"],
          "bench_launches": benches["bench"]["counts"]["physics_sums_bwd"],
          "megapixel_launches": benches["megapixel_bench"]["counts"]["physics_sums_bwd"],
+         "burnin_launches": [burnin[r]["k1_launches"][0]["physics_sums_bwd"]
+                             for r in ("run_a", "run_b")],
+         "stream_rows_launches": stream_rows["counts"]["physics_sums_bwd"],
+         "quickstart_launches": quickstart["counts"]["physics_sums_bwd"],
          "max_abs_err": errors["physics_sums_bwd"],
          "ms": main_shape["bwd"], "plain_ms": main_shape["plain_bwd"],
          "bound_ms": main_shape["bound_bwd"], "bound_by": main_shape["bound_bwd_by"],
@@ -2774,6 +2873,8 @@ def main() -> int:
     print(json.dumps({"sweep": sweep}))
     print(json.dumps({"compat": compat}))
     print(json.dumps({"benches": benches, "card": smi}))
+    print(json.dumps({"burnin": burnin, "stream_rows": stream_rows, "quant": quant,
+                      "quickstart": quickstart, "card": smi}))
     spatial = parallel["spatial"]
     print(json.dumps({"spatial_epochs": {k: spatial[k] for k in (
         "counts", "seconds", "peak_bytes", "peak_above_start_bytes", "vs_unsharded")},

@@ -61,7 +61,7 @@ from .ops import physics_kernel as K1
 from .train import LossConfig, create_train_state, make_train_epoch_fn, make_train_epochs_fn
 from .train.engine import TrainState
 from .utils.device import resolve_device, set_precision
-from .utils.measure import build_kernels, device_facts, launch_counts
+from .utils.measure import STAGE2, build_kernels, device_facts, launch_counts
 from .utils.profiling import sync
 
 __all__ = ["BATCH_SIZE", "IMAGE_SIZE", "N_IMAGES", "BASE_CHANNELS", "LEARNING_RATE",
@@ -77,8 +77,6 @@ LEARNING_RATE = 1e-4
 WARMUP_CALLS = 2
 TIMED_EPOCHS = 5
 ROUNDS = 5
-STAGE2 = dict(pde_weight=1e-4, phase_field_weight=1e-4, diffusion_coeff=5.0,
-              reaction_threshold=0.5, epsilon=0.05)
 
 # kernel against plain version, the bars of the repo's kernel tests
 SUM_RTOL = 1e-5

@@ -1,6 +1,6 @@
-"""What the measurement entry points share: the kernels' launch counts,
-the facts of the device a line was measured on, and building the kernels
-before anything is timed.
+"""What the measurement entry points share: the Stage II objective they
+train, the kernels' launch counts, the facts of the device a line was
+measured on, and building the kernels before anything is timed.
 
 Used by ``bench`` and the ``scripts`` package; nothing here times or runs
 a workload.
@@ -18,13 +18,22 @@ from ..ops import physics_kernel as K1
 from ..train import adamw_kernel as K2
 from .device import card_line
 
-__all__ = ["PEAK_FLOPS", "launch_counts", "device_facts", "build_kernels"]
+__all__ = ["STAGE2", "PEAK_FLOPS", "PEAK_INT8_OPS", "PEAK_SOURCE", "launch_counts",
+           "device_facts", "build_kernels"]
 
-# bf16 dense tensor-core peak by ``torch.cuda.get_device_name`` (NVIDIA's
-# data sheets, without sparsity, at the part's full power limit)
+# the ``LossConfig`` values of the workloads they train: the Stage II objective
+STAGE2 = dict(pde_weight=1e-4, phase_field_weight=1e-4, diffusion_coeff=5.0,
+              reaction_threshold=0.5, epsilon=0.05)
+
+# bf16 and int8 dense tensor-core peaks by ``torch.cuda.get_device_name``
+PEAK_SOURCE = "NVIDIA H100 data sheet, dense (without sparsity), at the part's full power limit"
 PEAK_FLOPS = {
     "NVIDIA H100 80GB HBM3": 989.4e12,  # SXM
     "NVIDIA H100 PCIe": 756e12,
+}
+PEAK_INT8_OPS = {
+    "NVIDIA H100 80GB HBM3": 1978.9e12,
+    "NVIDIA H100 PCIe": 1513e12,
 }
 
 

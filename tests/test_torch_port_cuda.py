@@ -2,8 +2,10 @@
 fused AdamW kernel (K2), the halo-padded physics kernel (K3) and the 3x3
 convolution kernels (K4) against their plain versions, and the Stage II
 objective, the train step, the halo physics loss, the Predictor, a
-three-stage ablation variant, a batched study and the reference's
-``DiceBCEPDELoss`` (``compat.py``) on the card.
+three-stage ablation variant, a batched study, the reference's
+``DiceBCEPDELoss`` (``compat.py``), the int8 convolution of
+``scripts/quant_probe.py`` (exact against float64) and the burn-in's
+deterministic launch (bit-equal across two processes) on the card.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these tests skip on a
 machine without a GPU.  Run them on the card with
@@ -19,6 +21,8 @@ float32: forward rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol 1e-4
 float32 and round once, so they are within one bf16 rounding (rtol 2^-7,
 atol 1e-2).
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -773,3 +777,40 @@ def test_bench_kernel_check_fails_loudly_on_a_wrong_plain_version(cuda, which):
     wrong = {f"{which}_plain": lambda *args: plain(*args) * 1.001}
     with pytest.raises(RuntimeError, match=f"kernel_check: {which}"):
         bench.kernel_check(**wrong)
+
+
+@pytest.mark.parametrize("shape,hi", [((2, 16, 16, 8, 16), 4), ((3, 5, 7, 24, 40), 127),
+                                      ((2, 16, 16, 512, 512), 127)])
+def test_int8_conv_on_the_card_is_exact(cuda, shape, hi):
+    """``quant_probe``'s int8 convolution (im2col + ``torch._int_mm`` on the
+    card, the weight matrix column-major) equals the float64 convolution
+    of the same integers exactly."""
+    from physics_informed_image_segmentation_tpu_torch.scripts import quant_probe
+
+    b, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(-hi, hi + 1, (b, h, w, cin), generator=g, dtype=torch.int8).to(cuda)
+    k = torch.randint(-hi, hi + 1, (3, 3, cin, cout), generator=g, dtype=torch.int8).to(cuda)
+    ref = quant_probe.conv3x3_reference(x, k)
+    out = quant_probe.int8_conv3x3_same(x, k)
+    assert out.dtype == torch.int32 and out.is_cuda
+    assert torch.equal(out.double(), ref)
+
+
+def test_deterministic_launch_is_bit_equal_across_processes(cuda, tmp_path):
+    """The burn-in's deterministic launch (``use_deterministic_algorithms``,
+    no warn-only) runs ``--ablation R1`` at base 8 through the CLI on the
+    card without an operation raising, K1 on its physics variants, and two
+    such processes give bit-equal aggregates."""
+    from physics_informed_image_segmentation_tpu_torch.scripts import ablation_burnin as burnin
+
+    cfg = burnin.Burnin(data_root=tmp_path / "data", work=tmp_path / "work", ablation="R1",
+                        images=(8, 4, 4, 4), size=32, epochs=1, base_channels=8,
+                        launch="deterministic")
+    burnin.make_data(cfg)
+    cfg.work.mkdir()
+    line = burnin.twice(cfg, {"card": "test"}, "deterministic")
+    assert line["equal_studies"] == 1 and line["max_abs_diff"] == 0.0
+    runs = json.loads((cfg.work / "runs.json").read_text())
+    for name in ("twice_deterministic_1", "twice_deterministic_2"):
+        assert runs[name]["k1_launches"] == [{"physics_sums_fwd": 6, "physics_sums_bwd": 3}]
