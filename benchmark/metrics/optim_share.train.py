@@ -1,0 +1,17 @@
+"""AdamW's share of the device's busy time in training (``train/optim.py``,
+whichever optimizer the configuration names): device time charged to span
+``piis.optimizer`` (``benchmark/spans.py``) over the busy union.  None
+where the program opened no span."""
+
+from benchmark.spans import spans_of
+
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "train_img_per_s"
+
+
+def read(ctx):
+    sp = spans_of(ctx.trace)
+    if sp is None:
+        return None
+    return 100.0 * sp.device(("piis.optimizer",)) / ctx.trace.busy_s

@@ -21,6 +21,10 @@ Checkpoints are ``.pth`` state dicts with the reference keys (the files
 :func:`..train.checkpoint.save_params` writes, or the reference
 implementation's own), or the Flax ``.msgpack`` files that the JAX
 package's ``save_params`` writes, in float32 or bf16.
+
+Under ``torch.profiler`` a request is span ``piis.predict``
+(:func:`.utils.profiling.span`), with one ``piis.upload`` and one
+``piis.forward`` a chunk, then ``piis.fetch`` and ``piis.threshold``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from .data.augment import d4_invert as _d4_invert
 from .models import UNet
 from .train.checkpoint import load_params
 from .utils.device import resolve_device, set_precision
+from .utils.profiling import span
 
 __all__ = ["Predictor", "load_image_for_inference"]
 
@@ -101,8 +106,9 @@ class Predictor:
     @torch.no_grad()
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) float32 on the device → (B, H, W, C_out) float32."""
-        out = self.model(x.permute(0, 3, 1, 2).to(self.dtype))
-        return out.permute(0, 2, 3, 1)
+        with span("piis.forward"):
+            out = self.model(x.permute(0, 3, 1, 2).to(self.dtype))
+            return out.permute(0, 2, 3, 1)
 
     def _forward_tta(self, x: torch.Tensor) -> torch.Tensor:
         # all 8 dihedral symmetries as one 8B-image batch, inverted and
@@ -150,13 +156,17 @@ class Predictor:
         n = x.shape[0]
         outs = []
         for start in range(0, n, self.batch_size):
-            chunk = x[start:start + self.batch_size]
-            pad = self.batch_size - chunk.shape[0]
-            if pad:
-                chunk = np.concatenate([chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
-            outs.append(forward(torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)))
+            with span("piis.upload"):
+                chunk = x[start:start + self.batch_size]
+                pad = self.batch_size - chunk.shape[0]
+                if pad:
+                    chunk = np.concatenate([chunk,
+                                            np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
+                chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+            outs.append(forward(chunk))
         # only the last chunk is padded, so the pad is the tail
-        return torch.cat(outs)[:n].cpu().numpy()
+        with span("piis.fetch"):
+            return torch.cat(outs)[:n].cpu().numpy()
 
     def predict(
         self,
@@ -173,15 +183,17 @@ class Predictor:
         one ``8*batch_size``-image batch, so peak activation memory is
         about 8x the plain path's.
         """
-        x = np.asarray(images, np.float32)
-        if x.ndim == 3:
-            x = x[..., None]
-        if tta and x.shape[1] != x.shape[2]:
-            raise ValueError("tta requires square images")
-        probs = self._run_chunks(x, self._forward_tta if tta else self._forward)
-        if threshold is None:
-            return probs
-        return (probs > threshold).astype(np.float32)
+        with span("piis.predict"):
+            x = np.asarray(images, np.float32)
+            if x.ndim == 3:
+                x = x[..., None]
+            if tta and x.shape[1] != x.shape[2]:
+                raise ValueError("tta requires square images")
+            probs = self._run_chunks(x, self._forward_tta if tta else self._forward)
+            if threshold is None:
+                return probs
+            with span("piis.threshold"):
+                return (probs > threshold).astype(np.float32)
 
     def predict_tiled(
         self,

@@ -24,6 +24,14 @@ resumed stage is bit-identical to an uninterrupted one.
 Besides the epoch: :func:`make_train_epochs_fn` (E epochs a call, one host
 sync), :func:`make_train_chunk_fn` (K streamed batches a call, see
 :mod:`..data.streaming`) and the ``augment=`` hook (:mod:`..data.augment`).
+
+Under ``torch.profiler`` the stage and its steps are spans
+(:func:`..utils.profiling.span`): ``piis.epoch`` holds ``piis.plan`` (the
+shuffle and its plan), one ``piis.step`` a step (the batch's gather,
+``piis.forward``, ``piis.objective``, ``piis.backward``, ``piis.optimizer``,
+``piis.metrics``), ``piis.sync``, ``piis.val`` (its own forward, objective,
+metrics and sync) and ``piis.log`` (best tracking, files, callback, early
+stopping); the validation plan before the first epoch is a ``piis.plan``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch
 
 from ..ops import metrics as M
 from ..utils.device import autocast
+from ..utils.profiling import span
 from .adamw_kernel import FusedAdamW
 from .objective import LossConfig, make_loss_and_components
 from .optim import AdamW, FlatAdamW, GroupedAdamW, LowPrecisionAdamW
@@ -188,8 +197,9 @@ def _batch_metrics(pred, target, valid, shard=None) -> dict:
 def _to_host(outs: list[dict]) -> dict:
     """Stack per-batch scalars and bring them to the host in one sync."""
     keys = list(outs[0])
-    stacked = torch.stack([torch.stack([o[k].float() for k in keys]) for o in outs])
-    cols = stacked.cpu().double()
+    with span("piis.sync"):
+        stacked = torch.stack([torch.stack([o[k].float() for k in keys]) for o in outs])
+        cols = stacked.cpu().double()
     return {k: cols[:, i] for i, k in enumerate(keys)}
 
 
@@ -225,7 +235,21 @@ def make_train_step_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
     one does.  The JAX package draws them from ``fold_in(dropout_key, 1)``,
     which a ``torch.Generator`` cannot reproduce: trajectories with
     augmentation are compared with JAX's by their transforms, not draws.
+
+    Each call is span ``piis.step`` (:func:`..utils.profiling.span`).
     """
+    body = _step_body(loss_cfg, compute_metrics, precision, shard, augment)
+
+    def step(state: TrainState, x, y, valid):
+        with span("piis.step"):
+            return body(state, x, y, valid)
+
+    return step
+
+
+def _step_body(loss_cfg, compute_metrics, precision, shard, augment):
+    """The step of :func:`make_train_step_fn` without its ``piis.step``
+    span, for callers whose span also covers the batch's gather."""
     loss_fn = make_loss_and_components(loss_cfg) if shard is None else shard.loss_fn(loss_cfg)
     forward = forward_nhwc if shard is None else shard.forward
 
@@ -236,15 +260,20 @@ def make_train_step_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
         if shard is not None:
             x, y, valid = shard.local(x), shard.local(y), shard.local(valid)
         state.model.train()
-        pred = forward(state.model, x, precision, state.dropout_generator)
-        total, comps = loss_fn(pred, y, _sample_mask(valid, x.dim()))
-        grads = torch.autograd.grad(total, state.optimizer.params)
+        with span("piis.forward"):
+            pred = forward(state.model, x, precision, state.dropout_generator)
+        with span("piis.objective"):
+            total, comps = loss_fn(pred, y, _sample_mask(valid, x.dim()))
+        with span("piis.backward"):
+            grads = torch.autograd.grad(total, state.optimizer.params)
         if shard is not None:
             grads = shard.reduce_grads(grads)
-        state.optimizer.step(grads)
+        with span("piis.optimizer"):
+            state.optimizer.step(grads)
         out = {"loss": total.detach(), **{k: v.detach() for k, v in comps.items()}}
         if compute_metrics:
-            out.update(_batch_metrics(pred.detach(), y, valid_all, shard))
+            with span("piis.metrics"):
+                out.update(_batch_metrics(pred.detach(), y, valid_all, shard))
         return state, out
 
     return step
@@ -260,13 +289,13 @@ def _epoch_results(cols: dict, compute_metrics: bool) -> dict:
 def _make_steps_fn(loss_cfg, compute_metrics, precision, shard, augment):
     """``steps(state, images, masks, idx, valid) -> (state, outs)``: one
     epoch's steps, their outputs left on the device."""
-    step = make_train_step_fn(loss_cfg, compute_metrics=compute_metrics, precision=precision,
-                              shard=shard, augment=augment)
+    step = _step_body(loss_cfg, compute_metrics, precision, shard, augment)
 
     def steps(state, images, masks, idx, valid):
         outs = []
         for b in range(idx.shape[0]):
-            state, out = step(state, images[idx[b]], masks[idx[b]], valid[b])
+            with span("piis.step"):
+                state, out = step(state, images[idx[b]], masks[idx[b]], valid[b])
             outs.append(out)
         return state, outs
 
@@ -331,7 +360,8 @@ def make_train_chunk_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
                               shard=shard)
 
     def chunk(state: TrainState, xs, ys, valids):
-        real = (valids.sum(dim=1) > 0).tolist()
+        with span("piis.sync"):
+            real = (valids.sum(dim=1) > 0).tolist()
         outs = []
         for k, is_real in enumerate(real):
             if is_real:
@@ -377,14 +407,17 @@ def make_eval_epoch_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
             valid_b = valid_all
             if shard is not None:
                 x, y, valid_b = shard.local(x), shard.local(y), shard.local(valid_all)
-            pred = forward(model, x, precision)
-            total, comps = loss_fn(pred, y, _sample_mask(valid_b, x.dim()))
-            p2, y2 = pred[..., 0], y[..., 0]
-            out = {"loss": total, **comps,
-                   "global_dice": M.dice_score(p2, y2, mask=_sample_mask(valid_b, p2.dim()),
-                                               reduce=reduce)}
-            if compute_metrics:
-                out.update(_batch_metrics(pred, y, valid_all, shard))
+            with span("piis.forward"):
+                pred = forward(model, x, precision)
+            with span("piis.objective"):
+                total, comps = loss_fn(pred, y, _sample_mask(valid_b, x.dim()))
+            out = {"loss": total, **comps}
+            with span("piis.metrics"):
+                p2, y2 = pred[..., 0], y[..., 0]
+                out["global_dice"] = M.dice_score(p2, y2, mask=_sample_mask(valid_b, p2.dim()),
+                                                  reduce=reduce)
+                if compute_metrics:
+                    out.update(_batch_metrics(pred, y, valid_all, shard))
             outs.append(out)
         cols = _to_host(outs)
         results = {k: float(cols[k].mean()) for k in _LOSS_KEYS}
@@ -550,62 +583,69 @@ def train_stage(
             print(f"[resume] {stage_name}: {len(all_metrics)} completed epoch(s) "
                   f"replayed, continuing at epoch {len(all_metrics) + 1}/{num_epochs}")
 
-    val_idx, val_valid = epoch_batch_indices(val_data.n, batch_size, shuffle=False, device=device)
+    with span("piis.plan"):
+        val_idx, val_valid = epoch_batch_indices(val_data.n, batch_size, shuffle=False,
+                                                 device=device)
 
     for epoch in range(len(all_metrics), num_epochs):
-        t_epoch = time.perf_counter()
-        shuffle = torch.Generator().manual_seed(fold_seed(shuffle_seed, epoch))
-        idx, valid = epoch_batch_indices(
-            train_data.n, batch_size, shuffle=True, generator=shuffle, device=device
-        )
-        state, train_results = train_epoch_fn(
-            state, train_data.images, train_data.masks, idx, valid
-        )
-        val_results = eval_epoch_fn(
-            state.model, val_data.images, val_data.masks, val_idx, val_valid
-        )
-        epoch_seconds.append(time.perf_counter() - t_epoch)
-
-        if val_results["dice_score"] > best_val_dice:
-            best_val_dice = val_results["dice_score"]
-            best_epoch = epoch + 1
-            best_metrics = {"train": train_results, "val": val_results}
-            if save_best_path is not None:
-                save_params(state.model, save_best_path)
-
-        epoch_metrics = _epoch_row(epoch + 1, train_results, val_results)
-        all_metrics.append(epoch_metrics)
-        if csv_path is not None:
-            save_metrics_to_csv(all_metrics, csv_path)
-        if checkpoint_dir is not None and checkpoint_every > 0:
-            if (epoch + 1) % checkpoint_every == 0 or epoch + 1 == num_epochs:
-                save_train_state(state, checkpoint_dir, keep=checkpoint_keep)
-        if epoch_callback is not None:
-            epoch_callback(epoch + 1, epoch_metrics)
-
-        fault = os.environ.get("PIIS_FAULT_AFTER")
-        if fault is not None:
-            f_stage, _, f_epoch = fault.rpartition(":")
-            if f_stage == stage_name and int(f_epoch) == epoch + 1:
-                raise RuntimeError(
-                    f"PIIS_FAULT_AFTER: injected crash after {stage_name} epoch {epoch + 1}"
+        with span("piis.epoch"):
+            t_epoch = time.perf_counter()
+            with span("piis.plan"):
+                shuffle = torch.Generator().manual_seed(fold_seed(shuffle_seed, epoch))
+                idx, valid = epoch_batch_indices(
+                    train_data.n, batch_size, shuffle=True, generator=shuffle, device=device
                 )
+            state, train_results = train_epoch_fn(
+                state, train_data.images, train_data.masks, idx, valid
+            )
+            with span("piis.val"):
+                val_results = eval_epoch_fn(
+                    state.model, val_data.images, val_data.masks, val_idx, val_valid
+                )
+            epoch_seconds.append(time.perf_counter() - t_epoch)
 
-        if verbose:
-            print(f"\n{stage_name} - Epoch {epoch + 1}/{num_epochs}")
-            print(f"  Train Loss: {train_results['loss']:.6f}")
-            print(f"    - Dice Loss: {train_results['dice_loss']:.6f}")
-            print(f"    - BCE Loss: {train_results['bce_loss']:.6f}")
-            if train_results.get("pde_loss", 0.0) != 0.0:
-                print(f"    - PDE Loss: {train_results['pde_loss']:.6f}")
-            print(f"  Val Loss: {val_results['loss']:.6f}")
-            print(f"  Val Dice Score: {val_results['dice_score']:.6f}")
+            with span("piis.log"):
+                if val_results["dice_score"] > best_val_dice:
+                    best_val_dice = val_results["dice_score"]
+                    best_epoch = epoch + 1
+                    best_metrics = {"train": train_results, "val": val_results}
+                    if save_best_path is not None:
+                        save_params(state.model, save_best_path)
 
-        if early_stopping is not None and early_stopping(val_results["dice_score"], epoch + 1):
-            if verbose:
-                print(f"\nEarly stopping triggered at epoch {epoch + 1}")
-                print(f"Best validation Dice score: {best_val_dice:.6f} at epoch {best_epoch}")
-            break
+                epoch_metrics = _epoch_row(epoch + 1, train_results, val_results)
+                all_metrics.append(epoch_metrics)
+                if csv_path is not None:
+                    save_metrics_to_csv(all_metrics, csv_path)
+                if checkpoint_dir is not None and checkpoint_every > 0:
+                    if (epoch + 1) % checkpoint_every == 0 or epoch + 1 == num_epochs:
+                        save_train_state(state, checkpoint_dir, keep=checkpoint_keep)
+                if epoch_callback is not None:
+                    epoch_callback(epoch + 1, epoch_metrics)
+
+                fault = os.environ.get("PIIS_FAULT_AFTER")
+                if fault is not None:
+                    f_stage, _, f_epoch = fault.rpartition(":")
+                    if f_stage == stage_name and int(f_epoch) == epoch + 1:
+                        raise RuntimeError(f"PIIS_FAULT_AFTER: injected crash after "
+                                           f"{stage_name} epoch {epoch + 1}")
+
+                if verbose:
+                    print(f"\n{stage_name} - Epoch {epoch + 1}/{num_epochs}")
+                    print(f"  Train Loss: {train_results['loss']:.6f}")
+                    print(f"    - Dice Loss: {train_results['dice_loss']:.6f}")
+                    print(f"    - BCE Loss: {train_results['bce_loss']:.6f}")
+                    if train_results.get("pde_loss", 0.0) != 0.0:
+                        print(f"    - PDE Loss: {train_results['pde_loss']:.6f}")
+                    print(f"  Val Loss: {val_results['loss']:.6f}")
+                    print(f"  Val Dice Score: {val_results['dice_score']:.6f}")
+
+                score = val_results["dice_score"]
+                if early_stopping is not None and early_stopping(score, epoch + 1):
+                    if verbose:
+                        print(f"\nEarly stopping triggered at epoch {epoch + 1}")
+                        print(f"Best validation Dice score: {best_val_dice:.6f} "
+                              f"at epoch {best_epoch}")
+                    break
 
     if timing_out is not None:
         steady = epoch_seconds[1:] if len(epoch_seconds) > 1 else epoch_seconds

@@ -1,13 +1,12 @@
 """Utilities: device selection, kernel builds, weight import, plots, profiling."""
 
 from . import plot, profiling  # noqa: F401
-from .profiling import StepTimer, ThroughputMeter, sync, trace  # noqa: F401
+from .profiling import span, sync, trace  # noqa: F401
 
 __all__ = [
     "plot",
     "profiling",
-    "StepTimer",
-    "ThroughputMeter",
+    "span",
     "sync",
     "trace",
 ]

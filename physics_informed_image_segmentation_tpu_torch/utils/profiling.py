@@ -1,26 +1,55 @@
-"""Profiling: device traces, step timing, throughput.
+"""Profiling: device traces and the program's spans.
 
 Counterpart of ``physics_informed_image_segmentation_tpu/utils/profiling.py``:
 
 * :func:`sync`: wait for the device work behind a value;
 * :func:`trace`: a ``torch.profiler`` trace of CPU and CUDA activity,
   written as a Chrome trace (``chrome://tracing``, Perfetto);
-* :class:`StepTimer`: host-clock step times with warm-up discard;
-* :class:`ThroughputMeter`: images per second, and per device.
+* :func:`span`: a named range of the program (``piis.*``, :data:`SPANS`)
+  in that trace, on the host timeline beside the kernels it launched.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from dataclasses import dataclass, field
 from pathlib import Path
-from typing import List, Optional
+from typing import Optional
 
-import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
-__all__ = ["trace", "sync", "StepTimer", "ThroughputMeter"]
+__all__ = ["trace", "sync", "span", "SPANS"]
+
+# Every span the program opens, outermost first where they nest.  Training:
+# piis.epoch > piis.plan, piis.step > piis.forward, piis.objective,
+# piis.backward, piis.optimizer, piis.metrics; piis.epoch > piis.val >
+# piis.forward, piis.objective, piis.metrics, piis.sync; piis.epoch >
+# piis.sync, piis.log.  Serving: piis.predict > piis.upload, piis.forward,
+# piis.fetch, piis.threshold.
+SPANS = ("piis.epoch", "piis.plan", "piis.step", "piis.forward", "piis.objective",
+         "piis.backward", "piis.optimizer", "piis.metrics", "piis.sync", "piis.val",
+         "piis.log", "piis.predict", "piis.upload", "piis.fetch", "piis.threshold")
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the block as span ``name`` in a
+    ``torch.profiler`` trace, nested under the spans open around it.
+
+    With no profiler recording it is a shared no-op: its cost is one check
+    of the profiler's flag (a ``record_function`` costs ~10 µs a block even
+    then).  The range is recorded as an operation of the host timeline
+    (``_RecordFunctionFast``), not as a ``record_function`` user
+    annotation: kineto copies each user annotation onto the device's
+    timeline as a range over the kernels it launched, which a reader of
+    the device's activity would take for device time.  Autograd's backward
+    runs on a thread of its own, outside every span: its operations are
+    tied to their forward by the profiler's ``sequence_nr``."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
 
 
 def _cuda_device(value) -> Optional[torch.device]:
@@ -66,87 +95,3 @@ def trace(log_dir):
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(path / "trace.json"))
-
-
-@dataclass
-class StepTimer:
-    """Host-clock step timing with warm-up discard.
-
-    >>> t = StepTimer(warmup=2)
-    >>> for _ in range(10):
-    ...     with t.step():
-    ...         out = step_fn(...)
-    ...         t.sync(out)
-    >>> t.mean_ms
-    """
-
-    warmup: int = 1
-    times: List[float] = field(default_factory=list)
-    _seen: int = 0
-
-    @contextlib.contextmanager
-    def step(self):
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
-        self._seen += 1
-        if self._seen > self.warmup:
-            self.times.append(dt)
-
-    def sync(self, value) -> None:
-        sync(value)
-
-    @property
-    def mean_ms(self) -> float:
-        return float(np.mean(self.times) * 1e3) if self.times else float("nan")
-
-    @property
-    def p50_ms(self) -> float:
-        return float(np.percentile(self.times, 50) * 1e3) if self.times else float("nan")
-
-    @property
-    def p99_ms(self) -> float:
-        return float(np.percentile(self.times, 99) * 1e3) if self.times else float("nan")
-
-
-@dataclass
-class ThroughputMeter:
-    """Images per second, and per device; ``n_devices`` 0 means the
-    ``torch.distributed`` world size (1 outside a process group)."""
-
-    n_devices: int = 0
-    _images: int = 0
-    _start: Optional[float] = None
-
-    def __post_init__(self):
-        if self.n_devices == 0:
-            dist = torch.distributed
-            self.n_devices = (dist.get_world_size()
-                              if dist.is_available() and dist.is_initialized() else 1)
-
-    def start(self) -> None:
-        self._start = time.perf_counter()
-        self._images = 0
-
-    def add(self, n_images: int) -> None:
-        if self._start is None:
-            self.start()
-        self._images += n_images
-
-    @property
-    def images_per_sec(self) -> float:
-        if self._start is None or self._images == 0:
-            return 0.0
-        return self._images / (time.perf_counter() - self._start)
-
-    @property
-    def images_per_sec_per_chip(self) -> float:
-        return self.images_per_sec / max(1, self.n_devices)
-
-    def report(self) -> dict:
-        return {
-            "images": self._images,
-            "images_per_sec": round(self.images_per_sec, 1),
-            "images_per_sec_per_chip": round(self.images_per_sec_per_chip, 1),
-            "n_devices": self.n_devices,
-        }

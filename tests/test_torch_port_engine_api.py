@@ -13,7 +13,7 @@ flip augmentation, and the profiling helpers.
   ``flip_augment`` on H != W.  The draws themselves cannot match JAX's keys.
 * A run with ``augment=d4_augment`` checkpointed and resumed equals the
   uninterrupted run bit for bit.
-* ``StepTimer`` and ``ThroughputMeter`` arithmetic on a fake clock.
+* ``profiling.trace`` writes a Chrome trace.
 """
 
 import jax.numpy as jnp
@@ -204,42 +204,6 @@ def test_resume_with_augmentation_is_bit_equal(tmp_path):
 # --------------------------------------------------------------------------
 # profiling
 # --------------------------------------------------------------------------
-
-
-class _Clock:
-    def __init__(self):
-        self.t = 100.0
-
-    def __call__(self):
-        return self.t
-
-
-def test_step_timer_and_throughput_meter(monkeypatch):
-    clock = _Clock()
-    monkeypatch.setattr(profiling.time, "perf_counter", clock)
-    timer = profiling.StepTimer(warmup=2)
-    assert np.isnan(timer.mean_ms)
-    for dt in (5.0, 4.0, 0.010, 0.020, 0.030, 0.040):
-        with timer.step():
-            clock.t += dt
-        timer.sync(torch.zeros(1))
-    assert timer.times == pytest.approx([0.010, 0.020, 0.030, 0.040])
-    assert timer.mean_ms == pytest.approx(25.0)
-    assert timer.p50_ms == pytest.approx(25.0)
-    assert timer.p99_ms == pytest.approx(39.7)
-
-    meter = profiling.ThroughputMeter()
-    assert meter.n_devices == 1 and meter.images_per_sec == 0.0
-    meter.add(8)  # starts the clock
-    clock.t += 2.0
-    meter.add(8)
-    assert meter.images_per_sec == pytest.approx(8.0)
-    four = profiling.ThroughputMeter(n_devices=4)
-    four.start()
-    four.add(40)
-    clock.t += 5.0
-    assert four.report() == {"images": 40, "images_per_sec": 8.0,
-                             "images_per_sec_per_chip": 2.0, "n_devices": 4}
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
