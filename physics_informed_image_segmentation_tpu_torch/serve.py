@@ -22,9 +22,22 @@ Checkpoints are ``.pth`` state dicts with the reference keys (the files
 implementation's own), or the Flax ``.msgpack`` files that the JAX
 package's ``save_params`` writes, in float32 or bf16.
 
+The output path.  :meth:`Predictor.predict` hands each chunk's result
+to the host as soon as the chunk is launched, not after the last one.
+With a ``threshold`` the card compares the chunk's float32 probabilities
+with it (NumPy's comparison of a float32 array with that scalar) and the
+payload is a 1-byte mask; without one it is the float32 probabilities.
+The payload is copied, ``non_blocking``, into one of two page-locked
+host buffers (a ring kept on the Predictor, made at the first request of
+each chunk shape and payload type), and the host unpacks chunk i into
+the request's own float32 array while the card runs chunk i+1.  On the
+CPU the same order runs on plain tensors.  The ring makes a Predictor
+unsafe to call from two threads at once.
+
 Under ``torch.profiler`` a request is span ``piis.predict``
-(:func:`.utils.profiling.span`), with one ``piis.upload`` and one
-``piis.forward`` a chunk, then ``piis.fetch`` and ``piis.threshold``.
+(:func:`.utils.profiling.span`), with one ``piis.upload``, one
+``piis.forward``, one ``piis.threshold`` (with a threshold) and one
+``piis.fetch`` a chunk, and a last ``piis.fetch``.
 """
 
 from __future__ import annotations
@@ -67,6 +80,15 @@ class Predictor:
     shape.  It runs on the GPU and raises without one, unless given
     ``device="cpu"``.  A ``model`` passed in is moved to that device and
     to the compute type.
+
+    Results come back through a ring of two page-locked host buffers a
+    chunk (see the module's docstring); ``predict`` returns a fresh array
+    every call.  The ring is the Predictor's own state: it is not
+    re-entrant across threads.  ``fetch_counts`` totals, over the
+    Predictor's requests, the ``chunks`` fetched, those whose payload was
+    the mask made on the card (``masks_on_card``), those unpacked while a
+    later chunk of their request was already launched (``overlapped``),
+    and the ``host_bytes`` copied to the host.
     """
 
     def __init__(
@@ -90,6 +112,8 @@ class Predictor:
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self.batch_size = batch_size
         self.image_size = tuple(image_size)
+        self._ring = {}  # (chunk shape, payload dtype) -> two (tensor, its numpy view, event)
+        self.fetch_counts = {"chunks": 0, "masks_on_card": 0, "overlapped": 0, "host_bytes": 0}
 
     @property
     def params(self):
@@ -150,12 +174,49 @@ class Predictor:
         return torch.cat([forward(x[i:i + self.batch_size])
                           for i in range(0, n, self.batch_size)])
 
-    def _run_chunks(self, x: np.ndarray, forward) -> np.ndarray:
-        """Launch every padded chunk before fetching any result: the one
-        copy to the host at the end is the only synchronisation."""
+    def _slots(self, payload: torch.Tensor) -> list:
+        """The ring's two slots for ``payload``'s shape and dtype, made at
+        the first request that needs them: a host tensor (page-locked on
+        CUDA), its numpy view, and an event (None on the CPU)."""
+        key = (tuple(payload.shape), payload.dtype)
+        if key not in self._ring:
+            cuda = self.device.type == "cuda"
+            slots = []
+            for _ in range(2):
+                host = torch.empty(key[0], dtype=key[1], pin_memory=cuda)
+                slots.append((host, host.numpy(), torch.cuda.Event() if cuda else None))
+            self._ring[key] = slots
+        return self._ring[key]
+
+    @staticmethod
+    def _unpack(out: np.ndarray, start: int, rows: int, view: np.ndarray, ready) -> None:
+        """Wait for a slot's copy and write its valid rows into ``out``
+        (a mask's 0/1 become float32 0/1 exactly)."""
+        if ready is not None:
+            ready.synchronize()
+        out[start:start + rows] = view[:rows]
+
+    def _run_chunks(self, x: np.ndarray, forward, threshold) -> np.ndarray:
+        """Run the padded chunks and bring each one's payload to the host
+        while the next one runs; returns a fresh (N, H, W, C) float32 array.
+
+        Chunk i is copied into slot i % 2 and unpacked after chunk i+1 has
+        been launched (the last one after the loop).  So slot i % 2 is
+        written again, by chunk i+2, only after the host has waited for
+        chunk i's copy and unpacked it: no copy overwrites a slot the host
+        has yet to read, and the host never reads a slot a copy is still
+        writing.  A request that raises midway may leave a copy in flight:
+        the next copy into that slot runs after it on the same stream."""
         n = x.shape[0]
-        outs = []
-        for start in range(0, n, self.batch_size):
+        if n == 0:
+            raise ValueError("predict needs at least one image")
+        if threshold is not None:
+            # NumPy's ``float32 array > threshold``: float32 against a Python
+            # float, float64 against a float64 scalar or array
+            f32 = np.result_type(np.float32, threshold) == np.float32
+            cmp_dtype = torch.float32 if f32 else torch.float64
+        counts, out, pending = self.fetch_counts, None, None
+        for i, start in enumerate(range(0, n, self.batch_size)):
             with span("piis.upload"):
                 chunk = x[start:start + self.batch_size]
                 pad = self.batch_size - chunk.shape[0]
@@ -163,10 +224,28 @@ class Predictor:
                     chunk = np.concatenate([chunk,
                                             np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
                 chunk = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-            outs.append(forward(chunk))
-        # only the last chunk is padded, so the pad is the tail
+            payload = forward(chunk)
+            if threshold is not None:
+                with span("piis.threshold"):
+                    payload = payload.to(cmp_dtype) > float(threshold)
+            with span("piis.fetch"):
+                host, view, ready = self._slots(payload)[i % 2]
+                host.copy_(payload, non_blocking=True)
+                if ready is not None:
+                    ready.record(torch.cuda.current_stream(self.device))
+                if out is None:
+                    out = np.empty((n,) + view.shape[1:], np.float32)
+                if pending is not None:
+                    self._unpack(out, *pending)
+                    counts["overlapped"] += 1
+                # only the last chunk is padded: its pad rows are never unpacked
+                pending = (start, min(self.batch_size, n - start), view, ready)
+            counts["chunks"] += 1
+            counts["masks_on_card"] += threshold is not None
+            counts["host_bytes"] += host.nbytes
         with span("piis.fetch"):
-            return torch.cat(outs)[:n].cpu().numpy()
+            self._unpack(out, *pending)
+        return out
 
     def predict(
         self,
@@ -175,13 +254,16 @@ class Predictor:
         tta: bool = False,
     ) -> np.ndarray:
         """(N, H, W[, 1]) images → probability maps (or binary masks when
-        ``threshold`` is given), shape (N, H, W, 1) float32.
+        ``threshold`` is given), a fresh float32 array of shape (N, H, W, 1).
 
         ``tta=True`` averages predictions over the 8 dihedral (flip/
         rot90) symmetries, exact for segmentation (no interpolation), at
         8x the compute.  Requires square inputs.  The 8 symmetries run as
         one ``8*batch_size``-image batch, so peak activation memory is
         about 8x the plain path's.
+
+        The masks are the host's ``(probs > threshold).astype(np.float32)``
+        bit for bit; the comparison runs on the card.
         """
         with span("piis.predict"):
             x = np.asarray(images, np.float32)
@@ -189,11 +271,7 @@ class Predictor:
                 x = x[..., None]
             if tta and x.shape[1] != x.shape[2]:
                 raise ValueError("tta requires square images")
-            probs = self._run_chunks(x, self._forward_tta if tta else self._forward)
-            if threshold is None:
-                return probs
-            with span("piis.threshold"):
-                return (probs > threshold).astype(np.float32)
+            return self._run_chunks(x, self._forward_tta if tta else self._forward, threshold)
 
     def predict_tiled(
         self,

@@ -26,7 +26,8 @@ __all__ = ["trace", "sync", "span", "SPANS"]
 # piis.backward, piis.optimizer, piis.metrics; piis.epoch > piis.val >
 # piis.forward, piis.objective, piis.metrics, piis.sync; piis.epoch >
 # piis.sync, piis.log.  Serving: piis.predict > piis.upload, piis.forward,
-# piis.fetch, piis.threshold.
+# piis.threshold (with a threshold) and piis.fetch once a chunk, and one
+# more piis.fetch for the last chunk's unpack.
 SPANS = ("piis.epoch", "piis.plan", "piis.step", "piis.forward", "piis.objective",
          "piis.backward", "piis.optimizer", "piis.metrics", "piis.sync", "piis.val",
          "piis.log", "piis.predict", "piis.upload", "piis.fetch", "piis.threshold")

@@ -591,6 +591,44 @@ def test_predictor_on_the_card(cuda, tmp_path):
     assert dev.is_cuda and abs(dev.cpu().numpy() - probs[:4]).max() <= 1e-5
 
 
+def test_predictor_output_ring_on_the_card(cuda, tmp_path):
+    """Twenty back-to-back requests of mixed sizes, each with a random
+    threshold and no synchronisation between them, through the ring of two
+    page-locked slots: every mask equals the host's threshold of the same
+    images' probabilities, fetched afterwards.  A slot read before its copy
+    landed, or written again before it was read, shows here and on no CPU."""
+    from physics_informed_image_segmentation_tpu_torch.data import make_blobs
+    from physics_informed_image_segmentation_tpu_torch.models import UNet
+    from physics_informed_image_segmentation_tpu_torch.serve import Predictor
+    from physics_informed_image_segmentation_tpu_torch.train.checkpoint import save_params
+
+    b, hw = 128, 64
+    model = UNet(base_channels=8, generator=torch.Generator().manual_seed(1))
+    save_params(model, tmp_path / "m.pth")
+    p = Predictor(tmp_path / "m.pth", batch_size=b, image_size=(hw, hw), precision="bf16",
+                  base_channels=8)
+    pool = make_blobs(800, hw, hw, seed=2)[0]
+    rng = np.random.default_rng(3)
+    requests = []
+    for n in [1, 127, 128, 129, 670] * 4:
+        start, t = int(rng.integers(0, len(pool) - n + 1)), float(rng.uniform(0.0, 1.0))
+        before = dict(p.fetch_counts)
+        masks = p.predict(pool[start:start + n], threshold=t)
+        requests.append((start, n, t, masks, {k: v - before[k] for k, v in p.fetch_counts.items()}))
+    for start, n, t, masks, counts in requests:
+        probs = p.predict(pool[start:start + n])
+        assert masks.shape == (n, hw, hw, 1) and masks.dtype == np.float32
+        assert np.array_equal(masks, (probs > t).astype(np.float32)), (start, n, t)
+        chunks = -(-n // b)
+        assert counts == {"chunks": chunks, "masks_on_card": chunks, "overlapped": chunks - 1,
+                          "host_bytes": chunks * b * hw * hw}, (n, counts)
+        assert counts["overlapped"] > 0 or chunks == 1
+    # the float32 payload through the ring is the device path's, bit for bit
+    x = pool[:2 * b]
+    dev = p.predict_device(torch.as_tensor(x, device=cuda))
+    assert np.array_equal(p.predict(x), dev.cpu().numpy())
+
+
 def test_three_stage_ablation_variant_on_the_card(cuda, tmp_path):
     """Base 8, 64x64, bf16: K1 runs in Stage II alone, forward on every
     train and validation batch, backward on every train step."""

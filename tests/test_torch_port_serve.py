@@ -114,6 +114,121 @@ def test_threshold_binarizes_and_padding_changes_nothing(pair):
     np.testing.assert_allclose(probs[:2], p.predict(images[:2]), atol=1e-6, rtol=0)
 
 
+B = 4  # the batch of ``pair``'s Predictors
+
+
+def _parent_path(p, images, tta=False):
+    """The output path before the ring, chunk for chunk as it ran (the
+    CPU's convolutions may round by the input's alignment): every padded
+    chunk's float32 probabilities gathered on the device, then one copy."""
+    n, b, outs = len(images), p.batch_size, []
+    for start in range(0, n, b):
+        chunk = images[start:start + b]
+        if len(chunk) < b:
+            chunk = np.concatenate([chunk, np.zeros((b - len(chunk),) + chunk.shape[1:],
+                                                    np.float32)])
+        chunk = torch.from_numpy(np.ascontiguousarray(chunk))
+        outs.append((p._forward_tta if tta else p._forward)(chunk))
+    return torch.cat(outs)[:n].numpy()
+
+
+@pytest.fixture(scope="module")
+def spread(ckpt):
+    """A Predictor whose probabilities spread over (0, 1): ``ckpt``'s
+    weights (probabilities 0.51-0.53) with the output convolution scaled and
+    shifted so that the logits of a probe request span about [-8, 8] around
+    0.  The TTA mean of eight views stays within about 0.43-0.93."""
+    p = Predictor(ckpt / "model.pth", batch_size=B, image_size=(HW, HW), precision="f32",
+                  base_channels=4, device="cpu")
+    probs = p.predict(_images(2 * B, seed=19)).astype(np.float64)
+    logits = np.log(probs / (1 - probs))
+    k = 16.0 / (logits.max() - logits.min())
+    params = dict(p.params)
+    params["out_conv.weight"] = params["out_conv.weight"] * k
+    params["out_conv.bias"] = params["out_conv.bias"] * k - k * logits.mean()
+    p.params = params
+    return p
+
+
+@pytest.mark.parametrize("tta", [False, True])
+@pytest.mark.parametrize("n", [1, B - 1, B, B + 1, 5 * B // 2])
+@pytest.mark.parametrize("t", [0.5, 0.3, 1 / 3, 0.0, 1.0])
+def test_threshold_on_the_card_is_the_host_threshold(spread, t, n, tta):
+    images = _images(n, seed=20 + n)
+    probs = spread.predict(images, tta=tta)
+    masks = spread.predict(images, threshold=t, tta=tta)
+    assert masks.shape == (n, HW, HW, 1) and masks.dtype == np.float32
+    np.testing.assert_array_equal(masks, (probs > t).astype(np.float32), strict=True)
+    if t == 0.5 or (0 < t < 1 and not tta):  # both sides of the threshold occur
+        assert 0 < masks.mean() < 1
+
+
+@pytest.mark.parametrize("t", [0.49999999999999994, np.float64(0.49999999999999994),
+                               np.float32(0.5), np.nextafter(np.float32(0.5), np.float32(0))])
+def test_threshold_promotes_as_numpy(ckpt, t):
+    """Zero weights give sigmoid(0) = 0.5 exactly everywhere.  Just below
+    0.5 a Python float rounds to float32 0.5 (NumPy 2 compares in float32:
+    no pixel is above), a float64 scalar does not (every pixel is)."""
+    p = Predictor(ckpt / "model.pth", batch_size=B, image_size=(HW, HW), precision="f32",
+                  base_channels=4, device="cpu")
+    p.params = {k: torch.zeros_like(v) for k, v in p.params.items()}
+    images = _images(B + 1, seed=30)
+    probs = p.predict(images)
+    assert (probs == 0.5).all()
+    np.testing.assert_array_equal(p.predict(images, threshold=t),
+                                  (probs > t).astype(np.float32), strict=True)
+
+
+@pytest.mark.parametrize("payload", ["probs", "masks"])
+def test_predict_returns_a_caller_owned_array(pair, payload):
+    _, p = pair
+    images = _images(2 * B + 1, seed=40)
+    # these weights put every probability above 0.5: split at the median
+    threshold = float(np.median(p.predict(images))) if payload == "masks" else None
+    first = p.predict(images, threshold=threshold)
+    kept = first.copy()
+    second = p.predict(_images(2 * B + 1, seed=41), threshold=threshold)
+    assert not np.array_equal(second, kept)  # other images, other results
+    np.testing.assert_array_equal(first, kept, strict=True)
+    for out in (first, second):
+        assert out.flags.owndata and out.flags.writeable
+        assert not any(np.shares_memory(out, view) for ring in p._ring.values()
+                       for _, view, _ in ring)
+
+
+@pytest.mark.parametrize("tta", [False, True])
+@pytest.mark.parametrize("threshold", [None, 0.5])
+@pytest.mark.parametrize("n", [1, B, 5 * B // 2])
+def test_fetch_counts(pair, n, threshold, tta):
+    _, p = pair
+    before = dict(p.fetch_counts)
+    p.predict(_images(n, seed=50), threshold=threshold, tta=tta)
+    chunks = -(-n // B)
+    payload = B * HW * HW * (1 if threshold is not None else 4)  # the pad rows too
+    assert {k: v - before[k] for k, v in p.fetch_counts.items()} == {
+        "chunks": chunks, "masks_on_card": chunks if threshold is not None else 0,
+        "overlapped": chunks - 1, "host_bytes": chunks * payload}
+
+
+@pytest.mark.parametrize("case", ["predict", "predict_tta", "tiled", "tiled_threshold"])
+def test_float_payload_is_the_parent_path(pair, monkeypatch, case):
+    """The float32 probabilities through the ring are bit for bit those of
+    the device-side gather and one copy, so ``predict_tiled`` (which
+    blends and thresholds them on the host) is unchanged."""
+    _, p = pair
+    if case.startswith("predict"):
+        images, tta = _images(5 * B // 2, seed=60), case.endswith("tta")
+        np.testing.assert_array_equal(p.predict(images, tta=tta), _parent_path(p, images, tta),
+                                      strict=True)
+        return
+    big = _images(1, seed=61, h=90, w=70)[0]
+    threshold = 0.5 if case.endswith("threshold") else None
+    ours = p.predict_tiled(big, overlap=8, threshold=threshold)
+    monkeypatch.setattr(p, "predict", lambda images: _parent_path(p, images))
+    np.testing.assert_array_equal(ours, p.predict_tiled(big, overlap=8, threshold=threshold),
+                                  strict=True)
+
+
 def test_tta_matches_jax_and_is_equivariant(pair):
     jp, p = pair
     images = _images(5, seed=2)
@@ -166,6 +281,8 @@ def test_validation_errors(pair):
         p.predict_device(torch.zeros((4, 16, HW, 1)), tta=True)
     with pytest.raises(ValueError, match="square"):
         p.predict(np.zeros((1, 16, HW, 1), np.float32), tta=True)
+    with pytest.raises(ValueError, match="at least one image"):
+        p.predict(np.zeros((0, HW, HW, 1), np.float32))
     with pytest.raises(ValueError, match=r"expected \(N, H, W"):
         p.predict_device(torch.zeros((4, HW)))
     for predictor in (p, jp):
