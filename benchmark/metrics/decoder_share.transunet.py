@@ -1,0 +1,22 @@
+"""TransUNet's decoder's share of the device's busy time in training
+(``models/transunet.py``: ``conv_more``, the four blocks of bilinear
+upsampling, concatenation and two convolutions with BatchNorm and ReLU,
+the head; training and validation, forward and backward): device time
+charged to span ``piis.decoder`` (``benchmark/spans.py``) over the busy
+union.  None where the program opened no such span."""
+
+from benchmark.spans import spans_of
+
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "train_img_per_s"
+
+
+def read(ctx):
+    sp = spans_of(ctx.trace)
+    if sp is None:
+        return None
+    spent = sp.device(("piis.decoder",))
+    if spent <= 0:
+        return None
+    return 100.0 * spent / ctx.trace.busy_s

@@ -89,6 +89,11 @@ def main(argv=None):
         help="U-Net base channel count (default: 64, the reference architecture)",
     )
     parser.add_argument(
+        "--model", type=str, default="unet", choices=["unet", "transunet"],
+        help="Architecture (default: unet; transunet is R50-ViT-B/16 at its published widths, "
+             "built for the images' side)",
+    )
+    parser.add_argument(
         "--checkpoint-every", type=int, default=0,
         help="Write a full train-state checkpoint every N epochs "
              "under {models}/checkpoints/ (default: 0 = off)",
@@ -130,6 +135,7 @@ def main(argv=None):
         physics_backend=args.physics_backend,
         make_plots=not args.no_plots,
         base_channels=args.base_channels,
+        model_name=args.model,
         checkpoint_every=args.checkpoint_every,
         checkpoint_keep=args.checkpoint_keep or None,
         resume=args.resume,

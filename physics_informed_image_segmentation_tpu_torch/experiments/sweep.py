@@ -47,7 +47,7 @@ import torch
 from torch.func import functional_call, vmap
 
 from ..data import DeviceDataset, epoch_batch_indices, fold_seed, subset_fraction_indices
-from ..models import UNet
+from ..models import UNet, require_unet
 from ..models.unet import draw_dropout_masks
 from ..ops import metrics as M
 from ..ops.physics_kernel import fused_loss_components
@@ -155,6 +155,7 @@ def run_batched_sweep(
     and the ``train_*``/``val_*`` columns of the epoch CSV, where E is the
     number of epochs run (the loop ends once every member has stopped).
     """
+    require_unet(model, "the batched sweep")
     if physics_backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown physics_backend {physics_backend!r}")
     device = resolve_device(device)

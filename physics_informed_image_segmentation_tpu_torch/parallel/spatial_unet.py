@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..models import require_unet
 from ..models.unet import spatial_dropout
 from ..utils.device import autocast
 from .halo import halo_exchange_pad
@@ -72,6 +73,7 @@ def sharded_forward_nhwc(model, x: torch.Tensor, precision: str, generator, mesh
     """This rank's (B_loc, H_loc, W, C) block → its (B_loc, H_loc, W, C_out)
     float32 probabilities (see the module docstring); the counterpart of
     :func:`..train.engine.forward_nhwc`."""
+    require_unet(model, "the sharded epochs")
     if spatial:
         check_band_rows(x.shape[1])
     rows = (x.shape[0] * mesh.data, x.shape[0] * mesh.data_rank)

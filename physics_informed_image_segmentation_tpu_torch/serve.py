@@ -49,7 +49,7 @@ import torch
 
 from .data.augment import d4_apply as _d4_apply
 from .data.augment import d4_invert as _d4_invert
-from .models import UNet
+from .models import TransUNet, build_model
 from .train.checkpoint import load_params
 from .utils.device import resolve_device, set_precision
 from .utils.profiling import span
@@ -78,8 +78,11 @@ class Predictor:
 
     Inputs are padded to ``batch_size``, so every forward pass has one
     shape.  It runs on the GPU and raises without one, unless given
-    ``device="cpu"``.  A ``model`` passed in is moved to that device and
-    to the compute type.
+    ``device="cpu"``.  ``model`` is a module, moved to that device and to
+    the compute type, or a name of :func:`..models.build_model`: ``"unet"``
+    (the default, at ``base_channels``) or ``"transunet"`` (at its
+    published widths, for ``image_size``).  A TransUNet takes images of its
+    own side only, so ``image_size`` must be ``(img_size, img_size)``.
 
     Results come back through a ring of two page-locked host buffers a
     chunk (see the module's docstring); ``predict`` returns a fresh array
@@ -94,7 +97,7 @@ class Predictor:
     def __init__(
         self,
         checkpoint_path,
-        model: Optional[UNet] = None,
+        model=None,
         batch_size: int = 8,
         image_size=(128, 128),
         precision: str = "bf16",
@@ -103,8 +106,13 @@ class Predictor:
     ):
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if set_precision(precision) == "bf16" else torch.float32
-        if model is None:
-            model = UNet(in_channels=1, out_channels=1, base_channels=base_channels)
+        if model is None or isinstance(model, str):
+            name = model or "unet"
+            model = build_model(name, **(dict(base_channels=base_channels) if name == "unet"
+                                         else dict(img_size=image_size[0])))
+        if isinstance(model, TransUNet) and tuple(image_size) != (model.img_size,) * 2:
+            raise ValueError(f"image_size {tuple(image_size)} is not the TransUNet's "
+                             f"{(model.img_size,) * 2}")
         # read in float32 and in the model's own key layout, kept on the
         # host as read; the model then takes the compute type once
         self._params = {k: v.detach().to("cpu", copy=True) for k, v in

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..models import require_unet
 from ..utils.flax_msgpack import load_msgpack
 from ..utils.weights import model_dropout, state_dict_from_jax
 
@@ -56,6 +57,7 @@ def load_params(path, model: Optional[torch.nn.Module] = None):
         if model is None:
             state_dict = state_dict_from_jax(tree)
         else:
+            require_unet(model, "a Flax .msgpack checkpoint")
             state_dict = state_dict_from_jax(tree, dropout=model_dropout(model))
     else:
         state_dict = torch.load(path, map_location="cpu", weights_only=True)

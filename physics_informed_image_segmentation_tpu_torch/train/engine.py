@@ -45,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models import require_unet
 from ..ops import metrics as M
 from ..utils.device import autocast
 from ..utils.profiling import span
@@ -355,11 +356,13 @@ def make_train_chunk_fn(loss_cfg: LossConfig, *, compute_metrics: bool = True,
     real batches one by one.  Its metrics are the JAX package's for such a
     step: NaN for the loss and the enabled means, a Dice loss of 0, and 0
     for the sums and ``n``.  ``valids`` is read on the host once a chunk.
+    The U-Net's path only: another model raises ``ValueError``.
     """
     step = make_train_step_fn(loss_cfg, compute_metrics=compute_metrics, precision=precision,
                               shard=shard)
 
     def chunk(state: TrainState, xs, ys, valids):
+        require_unet(state.model, "the streamed chunks")
         with span("piis.sync"):
             real = (valids.sum(dim=1) > 0).tolist()
         outs = []

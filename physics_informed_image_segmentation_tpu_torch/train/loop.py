@@ -27,7 +27,7 @@ import torch
 
 from ..data import CocoSegmentationSource, DeviceDataset, fold_seed, subset_fraction_indices
 from ..data.pipeline import num_batches
-from ..models import UNet, count_parameters
+from ..models import build_model, count_parameters
 from ..utils.device import resolve_device, set_precision
 from .checkpoint import latest_checkpoint_step, load_params, restore_train_state, save_params
 from .csvlog import save_test_metrics
@@ -171,6 +171,7 @@ def train(
     base_channels: int = 64,
     param_init: str = "lecun",
     device=None,
+    model_name: str = "unet",
 ) -> dict:
     """Run the two-stage (or single-stage) pipeline; returns artifacts.
 
@@ -195,6 +196,11 @@ def train(
     interrupted run's CSV is continued in place.  Shuffles are seeded per
     epoch and the dropout generator's state is checkpointed, so a resumed
     run is bit-identical to an uninterrupted one on the same device.
+
+    ``model_name``: ``"unet"`` (``base_channels``, ``param_init``) or
+    ``"transunet"`` (:class:`..models.TransUNet` at its published widths,
+    built for the training images' side; ``base_channels`` and
+    ``param_init`` are the U-Net's and are not read).
     """
     device = resolve_device(device)
     precision = set_precision(precision)
@@ -253,12 +259,14 @@ def train(
         print(f"Batch size: {batch_size}")
 
     # ----------------------------------------------------------------- model
-    model = UNet(
-        in_channels=1, out_channels=1, base_channels=base_channels,
-        param_init=param_init, generator=torch.Generator().manual_seed(fold_seed(seed, 0)),
-    ).to(device)
+    def make_model(generator=None, init="lecun"):
+        kw = (dict(base_channels=base_channels, param_init=init) if model_name == "unet"
+              else dict(img_size=train_data.images.shape[1]))
+        return build_model(model_name, generator=generator, **kw)
+
+    model = make_model(torch.Generator().manual_seed(fold_seed(seed, 0)), param_init).to(device)
     if verbose:
-        print(f"\nCreating UNet model... ({count_parameters(model):,} params)")
+        print(f"\nCreating {type(model).__name__} model... ({count_parameters(model):,} params)")
 
     results: dict = {"timestamp": timestamp}
     stage2_loss_cfg = LossConfig(
@@ -449,10 +457,7 @@ def train(
             model_name=final_name,
         )
         if use_two_stage:
-            stage1_model = load_params(
-                results["baseline_model"],
-                UNet(in_channels=1, out_channels=1, base_channels=base_channels),
-            ).to(device)
+            stage1_model = load_params(results["baseline_model"], make_model()).to(device)
             stage1_metrics = evaluate_on_dataset(
                 stage1_model, test_data, batch_size, "Baseline (Stage I)", verbose,
                 precision=precision,

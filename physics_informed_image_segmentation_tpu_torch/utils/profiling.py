@@ -27,10 +27,12 @@ __all__ = ["trace", "sync", "span", "SPANS"]
 # piis.forward, piis.objective, piis.metrics, piis.sync; piis.epoch >
 # piis.sync, piis.log.  Serving: piis.predict > piis.upload, piis.forward,
 # piis.threshold (with a threshold) and piis.fetch once a chunk, and one
-# more piis.fetch for the last chunk's unpack.
+# more piis.fetch for the last chunk's unpack.  Inside piis.forward, a
+# TransUNet's: piis.resnet, piis.transformer > piis.attention, piis.decoder.
 SPANS = ("piis.epoch", "piis.plan", "piis.step", "piis.forward", "piis.objective",
          "piis.backward", "piis.optimizer", "piis.metrics", "piis.sync", "piis.val",
-         "piis.log", "piis.predict", "piis.upload", "piis.fetch", "piis.threshold")
+         "piis.log", "piis.predict", "piis.upload", "piis.fetch", "piis.threshold",
+         "piis.resnet", "piis.transformer", "piis.attention", "piis.decoder")
 
 _NO_SPAN = contextlib.nullcontext()
 

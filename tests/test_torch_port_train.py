@@ -22,7 +22,7 @@ from physics_informed_image_segmentation_tpu.train import engine as jax_engine
 from physics_informed_image_segmentation_tpu.train import loop as jax_loop
 from physics_informed_image_segmentation_tpu.train.objective import LossConfig as JaxLossConfig
 from physics_informed_image_segmentation_tpu_torch.data import DeviceDataset, make_blobs
-from physics_informed_image_segmentation_tpu_torch.models import UNet
+from physics_informed_image_segmentation_tpu_torch.models import MODELS, UNet
 from physics_informed_image_segmentation_tpu_torch.train import engine
 from physics_informed_image_segmentation_tpu_torch.train import loop
 from physics_informed_image_segmentation_tpu_torch.train.objective import (
@@ -206,7 +206,7 @@ def test_train_with_checkpoints_matches_jax_train(tmp_path, monkeypatch):
         return model
 
     monkeypatch.setattr(jax_loop, "UNet", lambda **kw: JaxUNet(**{**kw, "dropout": 0.0}))
-    monkeypatch.setattr(loop, "UNet", port_unet)
+    monkeypatch.setitem(MODELS, "unet", port_unet)
     images, masks = make_blobs(n_train + 2, HW, HW, seed=6)
     common = dict(stage1_epochs=3, stage2_epochs=2, batch_size=6, learning_rate=lr, seed=seed,
                   base_channels=C, precision="f32", make_plots=False, verbose=False,
