@@ -1,4 +1,4 @@
-"""TransUNet, R50-ViT-B/16 (PyTorch, NCHW).
+"""TransUNet, R50-ViT-B/16 (PyTorch): NCHW at its interface, NHWC inside the decoder.
 
 Chen et al., "TransUNet: Transformers Make Strong Encoders for Medical
 Image Segmentation" (arXiv:2102.04306), as its code has it
@@ -33,6 +33,14 @@ The module names are that code's, so the ``state_dict`` keys are too
 * Head: a 3×3 convolution to ``out_channels`` at full resolution; its
   logits are cast to float32 before the sigmoid.
 
+The decoder runs channels-last (NHWC) from ``conv_more`` to the head: the
+tokens' map is a channels-last view, and each skip is made channels-last
+before its concatenation, so cuDNN takes its NHWC convolutions without
+transposing the activations and BatchNorm its channels-last kernels, which
+split a channel's reduction over many blocks where the NCHW ones give each
+channel one.  With one output channel the head's NHWC output is also a
+contiguous NCHW tensor.  Parameters keep their NCHW storage.
+
 Departures from the published model: ``out_channels`` logits through a
 sigmoid (the published head gives 2 classes to a softmax); random weights
 where the published run loads ImageNet-21k ones, and so a trunc-normal
@@ -42,7 +50,10 @@ Dropout is elementwise, its keep masks drawn as float32 ``bernoulli_(1 -
 p)`` from the ``generator`` given to ``forward``, in this order: the
 embeddings' mask, then, block by block, the mask after the GELU and the
 mask after fc2.  ``attention_counts`` totals the attention calls and
-their query-key ``pairs`` (batch × heads × queries × keys).
+their query-key ``pairs`` (batch × heads × queries × keys);
+``layout_counts`` totals the inputs of the ten decoder and head
+convolutions that were channels-last (``nhwc``) and those that were not
+(``nchw``).
 
 Under ``torch.profiler`` the forward opens the spans ``piis.resnet`` (root
 and body), ``piis.transformer`` (embeddings, blocks, final norm) with
@@ -249,17 +260,25 @@ def _conv_bn_relu(cin: int, cout: int) -> nn.Sequential:
                          nn.ReLU())
 
 
+def _counted(x: torch.Tensor, counts: dict) -> torch.Tensor:
+    """``x``, a convolution's input, counted in ``counts`` by its layout."""
+    counts["nhwc" if x.is_contiguous(memory_format=torch.channels_last) else "nchw"] += 1
+    return x
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, cin: int, cout: int, skip: int):
         super().__init__()
         self.conv1 = _conv_bn_relu(cin + skip, cout)
         self.conv2 = _conv_bn_relu(cout, cout)
 
-    def forward(self, x, skip=None):
+    def forward(self, x, skip, counts):
         x = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
         if skip is not None:
-            x = torch.cat([x, skip], dim=1)
-        return self.conv2(self.conv1(x))
+            # cat keeps the layout of its inputs only when they share it
+            x = torch.cat([x, skip.contiguous(memory_format=torch.channels_last)], dim=1)
+        x = self.conv1(_counted(x, counts))
+        return self.conv2(_counted(x, counts))
 
 
 class DecoderCup(nn.Module):
@@ -269,12 +288,16 @@ class DecoderCup(nn.Module):
         ins = (HEAD_CHANNELS,) + tuple(channels[:-1])
         self.blocks = nn.ModuleList(DecoderBlock(i, o, s) for i, o, s in zip(ins, channels, skips))
 
-    def forward(self, tokens, features):
+    def forward(self, tokens, features, counts):
         b, n, hidden = tokens.shape
         g = math.isqrt(n)
-        x = self.conv_more(tokens.transpose(1, 2).reshape(b, hidden, g, g))
+        # a channels-last view of the tokens, with channels-last strides at
+        # any batch (a transpose and reshape give a batch of one a stride
+        # that convolutions read as NCHW)
+        x = tokens.reshape(b, g, g, hidden).permute(0, 3, 1, 2)
+        x = self.conv_more(_counted(x, counts))
         for i, block in enumerate(self.blocks):
-            x = block(x, features[i] if i < len(features) else None)
+            x = block(x, features[i] if i < len(features) else None, counts)
         return x
 
 
@@ -306,6 +329,7 @@ class TransUNet(nn.Module):
         self.segmentation_head = nn.Sequential(
             nn.Conv2d(decoder_channels[-1], out_channels, 3, padding=1), nn.Identity())
         self.attention_counts = {"calls": 0, "pairs": 0}
+        self.layout_counts = {"nhwc": 0, "nchw": 0}
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -342,6 +366,7 @@ class TransUNet(nn.Module):
             tokens = self.transformer.encoder(emb(x, generator), generator,
                                               self.attention_counts)
         with span("piis.decoder"):
-            out = self.segmentation_head(self.decoder(tokens, features))
+            x = self.decoder(tokens, features, self.layout_counts)
+            out = self.segmentation_head(_counted(x, self.layout_counts))
         out = out.to(torch.promote_types(out.dtype, torch.float32))
         return torch.sigmoid(out)

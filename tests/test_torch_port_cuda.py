@@ -2,7 +2,9 @@
 fused AdamW kernel (K2), the halo-padded physics kernel (K3) and the 3x3
 convolution kernels (K4) against their plain versions, and the Stage II
 objective, the train step, the halo physics loss, the Predictor, a
-three-stage ablation variant, a batched study, the reference's
+three-stage ablation variant, a batched study, TransUNet's channels-last
+decoder (no NCHW batch-norm kernel, no layout transpose but around the
+one-channel head), the reference's
 ``DiceBCEPDELoss`` (``compat.py``), the int8 convolution of
 ``scripts/quant_probe.py`` (exact against float64) and the burn-in's
 deterministic launch (bit-equal across two processes) on the card.
@@ -852,3 +854,64 @@ def test_deterministic_launch_is_bit_equal_across_processes(cuda, tmp_path):
     runs = json.loads((cfg.work / "runs.json").read_text())
     for name in ("twice_deterministic_1", "twice_deterministic_2"):
         assert runs[name]["k1_launches"] == [{"physics_sums_fwd": 6, "physics_sums_bwd": 3}]
+
+
+def test_transunet_decoder_launches_no_nchw_kernels(cuda):
+    """A bf16 forward and backward of TransUNet's decoder and head at the
+    published decoder widths (256², so a 16² token grid and skips at 32²,
+    64² and 128²; skips and tokens float32 and NCHW, as the encoder gives
+    them): PyTorch's NCHW batch-norm kernels (one block per channel) stay
+    off, all ten convolution inputs are channels-last, and cuDNN transposes
+    no activation between layouts.  It does transpose around the head's
+    one-channel convolution (its output forward, its output's gradient for
+    dgrad and wgrad), whose tensors are the same bytes in either layout.
+    Prints the decoder's device kernels with their seconds."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from physics_informed_image_segmentation_tpu_torch.models import TransUNet
+
+    size, b = 256, 2
+    model = TransUNet(img_size=size).to(cuda).train()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randn(b, (size // 16) ** 2, 768, device=cuda, generator=g)
+    features = [torch.randn(b, c, size // s, size // s, device=cuda, generator=g)
+                for c, s in ((512, 8), (256, 4), (64, 2))]
+    for t in (tokens, *features):
+        t.requires_grad_(True)
+    weights = [*model.decoder.parameters(), *model.segmentation_head.parameters()]
+    with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+        probs = model(torch.rand(b, 1, size, size, device=cuda, generator=g), g)
+    assert model.layout_counts == {"nhwc": 10, "nchw": 0}
+    assert probs.shape == (b, 1, size, size) and probs.is_contiguous()
+
+    def step():
+        with torch.autocast("cuda", torch.bfloat16):
+            x = model.decoder(tokens, features, model.layout_counts)
+            assert x.is_contiguous(memory_format=torch.channels_last)  # the head's input
+            out = model.segmentation_head(x)
+        torch.autograd.grad(out.float().square().mean(), [*weights, tokens, *features])
+
+    step()  # cuDNN's plans
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    assert model.layout_counts == {"nhwc": 28, "nchw": 0}  # and the decoder's nine, twice
+    seconds, transposes = Counter(), []
+    head = list(model.segmentation_head[0].weight.shape)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            seconds[e.name] += e.device_time_total * 1e-6
+        for k in e.kernels:
+            if "nchwToNhwc" in k.name or "nhwcToNchw" in k.name:
+                transposes.append((e.name, head in e.input_shapes))
+    print(json.dumps(seconds.most_common(12)))
+    nchw_bn = [n for n in seconds if ("batch_norm_collect_statistics_kernel" in n
+                                       or "batch_norm_backward_kernel" in n)
+               and "channels_last" not in n]
+    assert any("channels_last" in n for n in seconds)
+    assert not nchw_bn, nchw_bn
+    assert len(transposes) <= 3 and all(on_head for _, on_head in transposes), transposes
