@@ -12,6 +12,7 @@ text and train() say 10, as in ``main.py``.
 
 import argparse
 
+from .models import MODELS
 from .train import train
 
 
@@ -89,7 +90,7 @@ def main(argv=None):
         help="U-Net base channel count (default: 64, the reference architecture)",
     )
     parser.add_argument(
-        "--model", type=str, default="unet", choices=["unet", "transunet"],
+        "--model", type=str, default="unet", choices=list(MODELS),
         help="Architecture (default: unet; transunet is R50-ViT-B/16 at its published widths, "
              "built for the images' side)",
     )

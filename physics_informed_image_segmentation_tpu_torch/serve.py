@@ -49,7 +49,7 @@ import torch
 
 from .data.augment import d4_apply as _d4_apply
 from .data.augment import d4_invert as _d4_invert
-from .models import TransUNet, build_model
+from .models import build_model
 from .train.checkpoint import load_params
 from .utils.device import resolve_device, set_precision
 from .utils.profiling import span
@@ -79,10 +79,10 @@ class Predictor:
     Inputs are padded to ``batch_size``, so every forward pass has one
     shape.  It runs on the GPU and raises without one, unless given
     ``device="cpu"``.  ``model`` is a module, moved to that device and to
-    the compute type, or a name of :func:`..models.build_model`: ``"unet"``
-    (the default, at ``base_channels``) or ``"transunet"`` (at its
-    published widths, for ``image_size``).  A TransUNet takes images of its
-    own side only, so ``image_size`` must be ``(img_size, img_size)``.
+    the compute type, or a name of :data:`..models.MODELS` (by default the
+    U-Net) built by :func:`..models.build_model` for ``image_size`` and
+    ``base_channels``.  A model built for one side (its ``img_size``, as a
+    TransUNet's) takes only ``image_size=(img_size, img_size)``.
 
     Results come back through a ring of two page-locked host buffers a
     chunk (see the module's docstring); ``predict`` returns a fresh array
@@ -107,12 +107,12 @@ class Predictor:
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if set_precision(precision) == "bf16" else torch.float32
         if model is None or isinstance(model, str):
-            name = model or "unet"
-            model = build_model(name, **(dict(base_channels=base_channels) if name == "unet"
-                                         else dict(img_size=image_size[0])))
-        if isinstance(model, TransUNet) and tuple(image_size) != (model.img_size,) * 2:
-            raise ValueError(f"image_size {tuple(image_size)} is not the TransUNet's "
-                             f"{(model.img_size,) * 2}")
+            model = build_model(model or "unet", image_size=image_size[0],
+                                base_channels=base_channels)
+        side = getattr(model, "img_size", None)  # set by a model built for one side
+        if side is not None and tuple(image_size) != (side, side):
+            raise ValueError(f"image_size {tuple(image_size)} is not the "
+                             f"{type(model).__name__}'s {(side, side)}")
         # read in float32 and in the model's own key layout, kept on the
         # host as read; the model then takes the compute type once
         self._params = {k: v.detach().to("cpu", copy=True) for k, v in

@@ -446,17 +446,13 @@ class EarlyStopping:
 
     def __call__(self, score: float, epoch: int) -> bool:
         if self.best_score is None:
-            self.best_score = score
-            self.best_epoch = epoch
-            return False
-        if self.mode == "max":
+            improved = True
+        elif self.mode == "max":
             improved = score > self.best_score + self.min_delta
         else:
             improved = score < self.best_score - self.min_delta
         if improved:
-            self.best_score = score
-            self.best_epoch = epoch
-            self.counter = 0
+            self.best_score, self.best_epoch, self.counter = score, epoch, 0
         else:
             self.counter += 1
             if self.counter >= self.patience:
@@ -464,17 +460,26 @@ class EarlyStopping:
         return self.early_stop
 
 
+class _BestEpoch:
+    """A stage's best validation Dice, its epoch (from 1) and metrics, and
+    ``early_stopping``'s verdict: the resume replay and the live loop both
+    feed each epoch through :meth:`update`, which returns (new best, stop)."""
+
+    def __init__(self, early_stopping: Optional[EarlyStopping]):
+        self.dice, self.epoch, self.metrics, self.early_stopping = 0.0, 0, {}, early_stopping
+
+    def update(self, dice: float, epoch: int, metrics: dict) -> tuple[bool, bool]:
+        better = dice > self.dice
+        if better:
+            self.dice, self.epoch, self.metrics = dice, epoch, metrics
+        return better, self.early_stopping is not None and self.early_stopping(dice, epoch)
+
+
 def _nested_metrics_from_row(row: dict) -> dict:
     """Invert a flat epoch-CSV row into the ``{"train": {...}, "val": {...}}``
     shape ``train_stage`` tracks for the best epoch (resume replay)."""
-    train: dict = {}
-    val: dict = {}
-    for k, v in row.items():
-        if k.startswith("train_"):
-            train[k[len("train_"):]] = float(v)
-        elif k.startswith("val_"):
-            val[k[len("val_"):]] = float(v)
-    return {"train": train, "val": val}
+    return {side: {k[len(side) + 1:]: float(v) for k, v in row.items() if k.startswith(side + "_")}
+            for side in ("train", "val")}
 
 
 def _epoch_row(epoch: int, train_results: dict, val_results: dict) -> dict:
@@ -556,9 +561,7 @@ def train_stage(
     from .checkpoint import save_params, save_train_state
     from .csvlog import save_metrics_to_csv
 
-    best_val_dice = 0.0
-    best_epoch = 0
-    best_metrics: dict = {}
+    best = _BestEpoch(early_stopping)
     all_metrics: list[dict] = []
     epoch_seconds: list[float] = []
     device = train_data.device
@@ -566,12 +569,8 @@ def train_stage(
     if initial_metrics:
         all_metrics = [dict(r) for r in initial_metrics]
         for row in all_metrics:
-            vd, ep = float(row["val_dice_score"]), int(row["epoch"])
-            if vd > best_val_dice:
-                best_val_dice = vd
-                best_epoch = ep
-                best_metrics = _nested_metrics_from_row(row)
-            if early_stopping is not None and early_stopping(vd, ep):
+            ep = int(row["epoch"])
+            if best.update(float(row["val_dice_score"]), ep, _nested_metrics_from_row(row))[1]:
                 # the interrupted run had already stopped
                 if verbose:
                     print(f"\n[resume] {stage_name}: early stopping already "
@@ -579,12 +578,38 @@ def train_stage(
                 if csv_path is not None:
                     save_metrics_to_csv(all_metrics, csv_path)
                 if timing_out is not None:
-                    timing_out["epoch_seconds"] = []
-                    timing_out["steady_state_images_per_sec"] = 0.0
-                return state, best_metrics, best_epoch, all_metrics
+                    timing_out.update(epoch_seconds=[], steady_state_images_per_sec=0.0)
+                return state, best.metrics, best.epoch, all_metrics
         if verbose:
             print(f"[resume] {stage_name}: {len(all_metrics)} completed epoch(s) "
                   f"replayed, continuing at epoch {len(all_metrics) + 1}/{num_epochs}")
+
+    def log_epoch(state, epoch, train_results, val_results):
+        """Epoch ``epoch`` (from 1)'s row, CSV, checkpoint, callback, fault hook, printout."""
+        row = _epoch_row(epoch, train_results, val_results)
+        all_metrics.append(row)
+        if csv_path is not None:
+            save_metrics_to_csv(all_metrics, csv_path)
+        if checkpoint_dir is not None and checkpoint_every > 0 and (
+                epoch % checkpoint_every == 0 or epoch == num_epochs):
+            save_train_state(state, checkpoint_dir, keep=checkpoint_keep)
+        if epoch_callback is not None:
+            epoch_callback(epoch, row)
+        fault = os.environ.get("PIIS_FAULT_AFTER")
+        if fault is not None:
+            f_stage, _, f_epoch = fault.rpartition(":")
+            if f_stage == stage_name and int(f_epoch) == epoch:
+                raise RuntimeError(f"PIIS_FAULT_AFTER: injected crash after "
+                                   f"{stage_name} epoch {epoch}")
+        if verbose:
+            print(f"\n{stage_name} - Epoch {epoch}/{num_epochs}")
+            print(f"  Train Loss: {train_results['loss']:.6f}")
+            print(f"    - Dice Loss: {train_results['dice_loss']:.6f}")
+            print(f"    - BCE Loss: {train_results['bce_loss']:.6f}")
+            if train_results.get("pde_loss", 0.0) != 0.0:
+                print(f"    - PDE Loss: {train_results['pde_loss']:.6f}")
+            print(f"  Val Loss: {val_results['loss']:.6f}")
+            print(f"  Val Dice Score: {val_results['dice_score']:.6f}")
 
     with span("piis.plan"):
         val_idx, val_valid = epoch_batch_indices(val_data.n, batch_size, shuffle=False,
@@ -608,46 +633,16 @@ def train_stage(
             epoch_seconds.append(time.perf_counter() - t_epoch)
 
             with span("piis.log"):
-                if val_results["dice_score"] > best_val_dice:
-                    best_val_dice = val_results["dice_score"]
-                    best_epoch = epoch + 1
-                    best_metrics = {"train": train_results, "val": val_results}
-                    if save_best_path is not None:
-                        save_params(state.model, save_best_path)
-
-                epoch_metrics = _epoch_row(epoch + 1, train_results, val_results)
-                all_metrics.append(epoch_metrics)
-                if csv_path is not None:
-                    save_metrics_to_csv(all_metrics, csv_path)
-                if checkpoint_dir is not None and checkpoint_every > 0:
-                    if (epoch + 1) % checkpoint_every == 0 or epoch + 1 == num_epochs:
-                        save_train_state(state, checkpoint_dir, keep=checkpoint_keep)
-                if epoch_callback is not None:
-                    epoch_callback(epoch + 1, epoch_metrics)
-
-                fault = os.environ.get("PIIS_FAULT_AFTER")
-                if fault is not None:
-                    f_stage, _, f_epoch = fault.rpartition(":")
-                    if f_stage == stage_name and int(f_epoch) == epoch + 1:
-                        raise RuntimeError(f"PIIS_FAULT_AFTER: injected crash after "
-                                           f"{stage_name} epoch {epoch + 1}")
-
-                if verbose:
-                    print(f"\n{stage_name} - Epoch {epoch + 1}/{num_epochs}")
-                    print(f"  Train Loss: {train_results['loss']:.6f}")
-                    print(f"    - Dice Loss: {train_results['dice_loss']:.6f}")
-                    print(f"    - BCE Loss: {train_results['bce_loss']:.6f}")
-                    if train_results.get("pde_loss", 0.0) != 0.0:
-                        print(f"    - PDE Loss: {train_results['pde_loss']:.6f}")
-                    print(f"  Val Loss: {val_results['loss']:.6f}")
-                    print(f"  Val Dice Score: {val_results['dice_score']:.6f}")
-
-                score = val_results["dice_score"]
-                if early_stopping is not None and early_stopping(score, epoch + 1):
+                better, stop = best.update(val_results["dice_score"], epoch + 1,
+                                           {"train": train_results, "val": val_results})
+                if better and save_best_path is not None:
+                    save_params(state.model, save_best_path)
+                log_epoch(state, epoch + 1, train_results, val_results)
+                if stop:
                     if verbose:
                         print(f"\nEarly stopping triggered at epoch {epoch + 1}")
-                        print(f"Best validation Dice score: {best_val_dice:.6f} "
-                              f"at epoch {best_epoch}")
+                        print(f"Best validation Dice score: {best.dice:.6f} "
+                              f"at epoch {best.epoch}")
                     break
 
     if timing_out is not None:
@@ -656,4 +651,4 @@ def train_stage(
         timing_out["steady_state_images_per_sec"] = (
             train_data.n / (sum(steady) / len(steady)) if steady else 0.0
         )
-    return state, best_metrics, best_epoch, all_metrics
+    return state, best.metrics, best.epoch, all_metrics

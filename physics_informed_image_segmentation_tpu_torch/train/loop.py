@@ -197,10 +197,8 @@ def train(
     epoch and the dropout generator's state is checkpointed, so a resumed
     run is bit-identical to an uninterrupted one on the same device.
 
-    ``model_name``: ``"unet"`` (``base_channels``, ``param_init``) or
-    ``"transunet"`` (:class:`..models.TransUNet` at its published widths,
-    built for the training images' side; ``base_channels`` and
-    ``param_init`` are the U-Net's and are not read).
+    ``model_name``: a name of :data:`..models.MODELS`, built by
+    :func:`..models.build_model` for the training images' side.
     """
     device = resolve_device(device)
     precision = set_precision(precision)
@@ -260,9 +258,8 @@ def train(
 
     # ----------------------------------------------------------------- model
     def make_model(generator=None, init="lecun"):
-        kw = (dict(base_channels=base_channels, param_init=init) if model_name == "unet"
-              else dict(img_size=train_data.images.shape[1]))
-        return build_model(model_name, generator=generator, **kw)
+        return build_model(model_name, image_size=train_data.images.shape[1],
+                           base_channels=base_channels, param_init=init, generator=generator)
 
     model = make_model(torch.Generator().manual_seed(fold_seed(seed, 0)), param_init).to(device)
     if verbose:

@@ -3,15 +3,14 @@ against PIL, against the JAX package's binding of the same source, and
 built by several processes at once.
 
 The cases and criteria against PIL are those of ``tests/test_native.py``.
-The JAX binding builds ``native/build/librasterize.so`` in place when it is
-first imported, so a test process can find it half-written while another
-builds it; the bit-equality case then resets the JAX module and retries.
-The port's library is written to a temporary file and renamed into place.
+The JAX binding builds ``native/build/librasterize.so`` in place, so the
+repository's root ``conftest.py`` builds it once, before any xdist worker
+starts; every test process then only loads it.  The port's library is
+written to a temporary file and renamed into place.
 """
 
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -148,21 +147,10 @@ def test_coco_split_native_backend(tmp_path):
         rasterize_polygons([], (8, 8), (8, 8), backend="opencv")
 
 
-def _jax_binding(tries=20, wait=0.5):
-    """The JAX package's binding, loaded; its module is reset and loaded
-    again while another process is mid-build (a half-written library)."""
+def test_bit_equal_to_the_jax_binding():
     from physics_informed_image_segmentation_tpu.data import native_raster as jax_native
 
-    for _ in range(tries):
-        if jax_native.native_available():
-            return jax_native
-        jax_native._lib, jax_native._build_error = None, None
-        time.sleep(wait)
-    raise AssertionError(f"the JAX binding did not load: {jax_native._build_error}")
-
-
-def test_bit_equal_to_the_jax_binding():
-    jax_native = _jax_binding()
+    assert jax_native.native_available(), jax_native._build_error
     rng = np.random.default_rng(11)
     scenes = [_random_scene(rng, 80, 72, 4) for _ in range(5)]
     scenes.append([{"segmentation": [_star(40, 36, 30, 12), _circle(10, 10, 30)]}])

@@ -15,6 +15,8 @@ reference's ``init_params``, loaded into the port by name:
   with the BatchNorm buffers; ``Predictor(model="transunet")``; the train
   CLI's ``--model``; ``train(model_name="transunet")``; the four spans;
   ``attention_counts``; the U-Net-only paths raising;
+* ``build_model``, for each model of ``MODELS``, taking the settings that
+  ``train()`` and a ``Predictor`` pass; unknown names and image sizes refused;
 * the decoder's channels-last layout (``layout_counts``).
 """
 
@@ -32,7 +34,7 @@ from benchmark.reference import transunet_steps
 from physics_informed_image_segmentation_tpu_torch import __main__ as cli
 from physics_informed_image_segmentation_tpu_torch.data import DeviceDataset, make_blobs
 from physics_informed_image_segmentation_tpu_torch.models import (
-    TransUNet, UNet, build_model, count_parameters,
+    MODELS, TransUNet, UNet, build_model, count_parameters,
 )
 from physics_informed_image_segmentation_tpu_torch.serve import Predictor
 from physics_informed_image_segmentation_tpu_torch.train import (
@@ -379,9 +381,64 @@ def test_unet_only_paths_refuse_a_transunet(path):
 
 
 def test_build_model_by_name():
-    assert isinstance(build_model("unet", base_channels=4), UNet)
-    assert isinstance(build_model("transunet", img_size=S, **SMALL), TransUNet)
+    assert isinstance(build_model("unet", image_size=S, base_channels=4), UNet)
+    assert isinstance(build_model("transunet", image_size=S, **SMALL), TransUNet)
     with pytest.raises(ValueError, match="unknown model"):
-        build_model("vit")
+        build_model("vit", image_size=S)
     with pytest.raises(ValueError, match="multiple of 16"):
         TransUNet(img_size=72)
+
+
+class _Built(Exception):
+    """Raised by a recording constructor once it has taken its arguments."""
+
+
+# What each model's constructor takes of the run's settings, from train()
+# (base 4, "torch" init) and from a Predictor (base 4; the default init).
+TAKES = {"unet": (dict(base_channels=4, param_init="torch"),
+                  dict(base_channels=4, param_init="lecun")),
+         "transunet": (dict(img_size=S), dict(img_size=S))}
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_build_model_maps_the_run_settings(monkeypatch, tmp_path, name):
+    """``build_model`` alone maps a run's settings to each model: the model
+    has the registered type, and ``train()`` and a ``Predictor`` hand it the
+    same settings, which reach the constructor as ``TAKES`` says."""
+    widths = SMALL if name == "transunet" else {}
+    model = build_model(name, image_size=S, base_channels=4, param_init="torch",
+                        generator=torch.Generator().manual_seed(0), **widths)
+    assert type(model) is MODELS[name] and getattr(model, "img_size", S) == S
+
+    seen = []
+
+    def record(**kw):
+        seen.append(kw)
+        raise _Built
+
+    monkeypatch.setitem(MODELS, name, record)
+    images, masks = make_blobs(2, S, S, seed=0)
+    data = DeviceDataset.from_numpy(images, masks, "cpu")
+    with pytest.raises(_Built):
+        loop.train(train_data=data, val_data=data, output_dir=tmp_path, models_dir=tmp_path,
+                   device="cpu", precision="f32", make_plots=False, verbose=False,
+                   base_channels=4, param_init="torch", model_name=name)
+    with pytest.raises(_Built):
+        Predictor(tmp_path / "absent.pth", model=name, image_size=(S, S), base_channels=4,
+                  device="cpu")
+    assert isinstance(seen[0].pop("generator"), torch.Generator)
+    assert seen[1].pop("generator") is None
+    assert tuple(seen) == TAKES[name]
+
+
+@pytest.mark.parametrize("make, match", [
+    (lambda path: Predictor(path, model="vit", device="cpu"), "unknown model"),
+    (lambda path: Predictor(path, model=TransUNet(img_size=S, **SMALL), image_size=(2 * S, 2 * S),
+                            device="cpu"), "image_size"),
+], ids=["unknown-name", "instance-side"])
+def test_predictor_refuses_a_model(tmp_path, make, match):
+    """A Predictor given an unknown name, or a built model whose side is not
+    ``image_size``, raises before any weights are read (a named model's side:
+    ``test_predictor_masks_match_the_reference``)."""
+    with pytest.raises(ValueError, match=match):
+        make(tmp_path / "absent.pth")
