@@ -7,7 +7,7 @@ Phases (any failure raises, and the script exits non-zero without the
 final result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel from ``csrc/`` (four sources, one ``nvcc``
+2. build every CUDA kernel from ``csrc/`` (five sources, one ``nvcc``
    each, started together), timing the build;
 3. hold each kernel against its plain PyTorch version on the card: K1 at
    the training shape and at shapes that stress the tiling (H and W of 2
@@ -66,6 +66,11 @@ final result line):
    chunks and all-ones inputs, and in float32 against ``F.conv2d``; every
    case prints the kernel set (wgmma, wmma or CUDA cores) that its forward,
    dx and dW took and is held to the set its operands should take;
+   then GroupNorm with its residual and ReLU (``ops/group_norm.py``)
+   against float64 at TransUNet's site kinds at 1024², batch 8, odd H*W,
+   H*W below a pack, one group, in bf16 and float32, repeated bit for bit,
+   and a bf16 forward and backward of TransUNet's ResNet at 1024² that
+   counts 52 launches each way;
 9. the data×space path at world 1 (NCCL through a file store): the
    megapixel train step (``parallel/megapixel.py``: 1024x1024, base 64,
    bf16, 3 steps) with K3's launch counts and its peak memory; one f32
@@ -107,7 +112,9 @@ final result line):
 10. time the kernels, their plain versions, the library's calls (fused
    AdamW, ``F.conv2d`` and its weight gradient) and
    steady-state Stage II training with "adamw" and "pallas_adamw", with
-   CUDA events; K1's, K2's, K3's and K4's kernels and the library's calls
+   CUDA events (GroupNorm's at the ResNet's largest sites, against its
+   byte floor and the autocast path it replaces); K1's, K2's, K3's and
+   K4's kernels and the library's calls
    also by device time per call (``torch.profiler``), which leaves the
    wrapper out and lists the device kernels a call launched (K3: one each
    way, or the script fails), and K1 and K3 in runs of queued calls;
@@ -1751,6 +1758,219 @@ def check_k4() -> dict:
     return errors
 
 
+# GroupNorm (+ residual, ReLU) against float64, with the gradients taken
+# through the kernel's own ReLU decisions (a pre-activation within float32
+# rounding of 0 may fall either way): the output one rounding of a float32
+# value (bf16 2^-8, float32 1e-5 relative) plus 1e-5 of the largest; the
+# gradients 1e-5 relative (a bf16 dx: 2^-8) plus 1e-5 of the largest.
+GN_ATOL_REL = 1e-5
+
+
+def gn_case(shape, groups, dtype, out, residual, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, c, h, w = shape
+    x = (torch.randn(shape, device="cuda", generator=g)
+         * (0.5 + torch.rand(1, c, 1, 1, device="cuda", generator=g)) + 0.3).to(dtype)
+    weight = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    r = torch.randn(shape, device="cuda", generator=g) if residual else None
+    dy = torch.randn(shape, device="cuda", generator=g).to(out)
+    return x, weight, bias, r, dy
+
+
+def gn_kernel_and_reference(x, weight, bias, r, dy, groups, eps, relu, out):
+    from physics_informed_image_segmentation_tpu_torch.ops.group_norm import GroupNormAct
+
+    extra = (r,) if r is not None else ()
+    ins = [t.clone().requires_grad_(True) for t in (x, weight, bias, *extra)]
+    y = GroupNormAct.apply(*ins[:3], ins[3] if extra else None, groups, eps, relu, out, True)
+    kernel = (y.detach(), *torch.autograd.grad(y, ins, dy))
+    ref_ins = [t.double().requires_grad_(True) for t in (x, weight, bias, *extra)]
+    z = F.group_norm(ref_ins[0], groups, ref_ins[1], ref_ins[2], eps)
+    if extra:
+        z = z + ref_ins[3]
+    ry = torch.where(kernel[0] > 0, z, torch.zeros_like(z)) if relu else z
+    ref = (z.detach().clamp_min(0) if relu else z.detach(),
+           *torch.autograd.grad(ry, ref_ins, dy.double()))
+    return kernel, ref, z.detach()
+
+
+def check_group_norm() -> dict:
+    """GroupNorm with its residual and ReLU (``ops/group_norm.py``) against
+    float64 at TransUNet's site kinds and awkward shapes: odd H*W (groups
+    and channels off the 16-byte packs), H*W below a pack, one channel a
+    group, one group; bf16 and float32 inputs; repeated bit for bit.
+    Returns the largest errors at the root's shape."""
+    from physics_informed_image_segmentation_tpu_torch.ops import group_norm as GN
+
+    GN.reset_launch_counts()
+    f32, bf16 = torch.float32, torch.bfloat16
+    # label, shape, groups, eps, residual, relu, output type (None: the input's)
+    cases = [
+        ("root (8,64,512,512) G32", (8, 64, 512, 512), 32, 1e-6, False, True, None),
+        ("gn3 + residual (8,256,255,255) G32", (8, 256, 255, 255), 32, 1e-6, True, True, f32),
+        ("last gn3, bf16 out (8,1024,64,64) G32", (8, 1024, 64, 64), 32, 1e-6, True, True, None),
+        ("gn_proj (8,1024,64,64) G=C eps 1e-5", (8, 1024, 64, 64), 1024, 1e-5, False, False, f32),
+        ("gn2 (3,64,37,29) G32", (3, 64, 37, 29), 32, 1e-6, False, True, None),
+        ("H*W below a pack (2,32,2,3) G8", (2, 32, 2, 3), 8, 1e-6, True, True, f32),
+        ("one group (2,24,9,7) G1", (2, 24, 9, 7), 1, 1e-6, False, True, None),
+        ("residual, no ReLU (2,16,5,5) G4", (2, 16, 5, 5), 4, 1e-6, True, False, f32),
+    ]
+    errors = {}
+    for i, (label, shape, groups, eps, residual, relu, out) in enumerate(cases):
+        for dtype in (bf16, f32):
+            o = out or dtype
+            x, weight, bias, r, dy = gn_case(shape, groups, dtype, o, residual, seed=300 + i)
+            kernel, ref, z = gn_kernel_and_reference(x, weight, bias, r, dy, groups, eps, relu, o)
+            errs = []
+            for name, k, p in zip(("y", "dx", "dgamma", "dbeta", "dr"), kernel, ref):
+                rtol = 1e-5
+                if (name == "y" and o == bf16) or (name == "dx" and dtype == bf16):
+                    rtol = 2.0 ** -8
+                err = (k.double() - p).abs()
+                errs.append(float(err.max()))
+                check(bool(torch.all(err <= GN_ATOL_REL * p.abs().max() + rtol * p.abs())),
+                      f"GroupNorm {label} {dtype}: {name} beyond its tolerance ({errs[-1]:.3e})")
+            if relu:
+                flipped = (kernel[0] > 0) != (z > 0)
+                check(bool(torch.all(z[flipped].abs() <= 1e-5)),
+                      f"GroupNorm {label} {dtype}: the ReLU decided {int(flipped.sum())} elements "
+                      f"away from 0 otherwise than float64")
+            print(f"GroupNorm {label} {dtype}: max|d y| {errs[0]:.3e}, dx {errs[1]:.3e}, "
+                  f"dgamma {errs[2]:.3e}, dbeta {errs[3]:.3e}"
+                  + (f", dr {errs[4]:.3e}" if residual else ""))
+            if i == 0 and dtype == bf16:
+                errors["group_norm_fwd"], errors["group_norm_bwd"] = errs[0], max(errs[1:])
+            again = gn_kernel_and_reference(x, weight, bias, r, dy, groups, eps, relu, o)[0]
+            check(all(torch.equal(a, b) for a, b in zip(kernel, again)),
+                  f"GroupNorm {label} {dtype}: does not repeat bit for bit")
+            del x, r, dy, kernel, ref, z, again
+    # the residual stream's bf16 copy: y cast to bf16, and its gradient added to y's
+    x, weight, bias, r, dy = gn_case((8, 256, 255, 255), 32, bf16, f32, True, seed=390)
+    dy_low = torch.randn(x.shape, device="cuda").to(bf16)
+    ins = [t.clone().requires_grad_(True) for t in (x, weight, bias, r)]
+    y, y_low = GN.GroupNormAct.apply(*ins, 32, 1e-6, True, f32, True, True)
+    check(torch.equal(y_low, y.to(bf16)), "GroupNorm's bf16 copy is not y cast to bf16")
+    both = torch.autograd.grad((y, y_low), ins, (dy, dy_low))
+    ins2 = [t.clone().requires_grad_(True) for t in (x, weight, bias, r)]
+    y2 = GN.GroupNormAct.apply(*ins2, 32, 1e-6, True, f32, True)
+    summed = torch.autograd.grad(y2, ins2, dy + dy_low.float())
+    check(all(torch.equal(a, b) for a, b in zip(both, summed)),
+          "GroupNorm's backward with the bf16 copy's gradient differs from one given the sum")
+    print("GroupNorm bf16 copy of the residual stream: bit-equal, forward and backward")
+    torch.cuda.synchronize()
+    # two forwards and backwards a case and type, and two for the bf16 copy
+    expected = {"group_norm_fwd": 4 * len(cases) + 2, "group_norm_bwd": 4 * len(cases) + 2}
+    check(GN.launch_counts == expected,
+          f"GroupNorm launches {GN.launch_counts}, expected {expected}")
+    return errors
+
+
+def drive_resnet_norms() -> dict:
+    """A bf16 forward and backward of TransUNet's ResNetV2 at 1024², batch
+    2, as the model runs it: every one of its 52 norms takes the kernels.
+    Returns the launch counts of that step."""
+    from physics_informed_image_segmentation_tpu_torch.models import TransUNet
+    from physics_informed_image_segmentation_tpu_torch.ops import group_norm as GN
+
+    size = 1024
+    model = TransUNet(img_size=size).to("cuda").train()
+    resnet = model.transformer.embeddings.hybrid_model
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(2, 1, size, size, device="cuda", generator=g).repeat(1, 3, 1, 1)
+    GN.reset_launch_counts()
+    with torch.autocast("cuda", torch.bfloat16):
+        feats, skips = resnet(x, model.norm_counts)
+    loss = feats.float().square().mean() + sum(s.float().mean() for s in skips)
+    torch.autograd.grad(loss, list(resnet.parameters()))
+    torch.cuda.synchronize()
+    counts = dict(GN.launch_counts)
+    check(model.norm_counts == {"fused": 52, "plain": 0},
+          f"TransUNet's ResNet norms: {model.norm_counts}, expected 52 fused")
+    check(counts == {"group_norm_fwd": 52, "group_norm_bwd": 52},
+          f"TransUNet's ResNet step launched {counts}, expected 52 each way")
+    print(f"TransUNet ResNet at {size}², batch 2, bf16: norm calls {model.norm_counts}, "
+          f"launches {counts}")
+    del model, resnet, x, feats, skips, loss
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the sites timed, at 1024², batch 8: label, shape, groups, eps, residual,
+# relu, output type (None: bf16 like the input)
+GN_TIMED = [
+    ("root", (8, 64, 512, 512), 32, 1e-6, False, True, None),
+    ("block1 gn3 + residual", (8, 256, 255, 255), 32, 1e-6, True, True, torch.float32),
+    ("block3 gn3 + residual", (8, 1024, 64, 64), 32, 1e-6, True, True, torch.float32),
+    ("block1 gn_proj", (8, 256, 255, 255), 256, 1e-5, False, False, torch.float32),
+]
+
+
+def gn_floor_bytes(numel: int, proj: bool) -> tuple[int, int]:
+    """The byte floor of a forward and a backward, as
+    ``benchmark/metrics/norm_roofline.transunet.py`` counts it: bf16 input
+    and output (gn_proj: the input), and for the backward the gradient in,
+    the input and the gradient out (gn_proj: the input and the gradient out)."""
+    return (2 if proj else 4) * numel, (4 if proj else 6) * numel
+
+
+def time_group_norm() -> dict:
+    """GroupNorm's kernels at the ResNet's largest sites, forward and
+    backward, by CUDA events, against their byte floor and against today's
+    path under bf16 autocast (float32 ``group_norm``, add and ``relu``, and
+    apart their backward); ms per call."""
+    from physics_informed_image_segmentation_tpu_torch.ops import group_norm as GN
+
+    rows = {}
+    for label, shape, groups, eps, residual, relu, out in GN_TIMED:
+        o = out or torch.bfloat16
+        x, weight, bias, r, dy = gn_case(shape, groups, torch.bfloat16, o, residual, seed=400)
+        weight.requires_grad_(True)
+        bias.requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+        rg = r.clone().requires_grad_(True) if residual else None
+        ins = [t for t in (xg, weight, bias, rg) if t is not None]
+
+        def fwd():
+            return GN.GroupNormAct.apply(xg, weight, bias, rg, groups, eps, relu, o, True)
+
+        y = fwd()
+        saved = y.grad_fn
+
+        def bwd():
+            return saved.apply(dy)
+
+        def plain_fwd():
+            with torch.autocast("cuda", torch.bfloat16):
+                z = F.group_norm(xg, groups, weight, bias, eps)
+                if residual:
+                    z = rg + z
+                return F.relu(z) if relu else z
+
+        z = plain_fwd()
+        dz = dy.to(z.dtype)
+
+        def plain_bwd():
+            return torch.autograd.grad(z, ins, dz, retain_graph=True)
+
+        fwd_ms, bwd_ms = time_cuda(fwd), time_cuda(bwd)
+        plain_fwd_ms, plain_bwd_ms = time_cuda(plain_fwd), time_cuda(plain_bwd)
+        floor_f, floor_b = gn_floor_bytes(x.numel(), not relu)
+        row = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": plain_fwd_ms,
+               "plain_bwd_ms": plain_bwd_ms,
+               "floor_fwd_ms": floor_f / PEAK_BYTES_PER_S * 1e3,
+               "floor_bwd_ms": floor_b / PEAK_BYTES_PER_S * 1e3}
+        row["fwd_share"] = row["floor_fwd_ms"] / fwd_ms
+        row["bwd_share"] = row["floor_bwd_ms"] / bwd_ms
+        rows[label] = row
+        print(f"GroupNorm {label} {shape}: forward {fwd_ms:.3f} ms ({100 * row['fwd_share']:.1f}% "
+              f"of its byte floor), backward {bwd_ms:.3f} ms ({100 * row['bwd_share']:.1f}%); "
+              f"autocast's path forward {plain_fwd_ms:.3f} ms, backward {plain_bwd_ms:.3f} ms")
+        del x, r, dy, xg, rg, y, saved, z, dz
+    torch.cuda.synchronize()
+    return rows
+
+
 def drive_probe() -> dict:
     """The probe's path at full width through ``utils/conv_probe.py``:
     (8,128,128,64) bf16, every row; returns its results and K4's launch
@@ -2721,7 +2941,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    built = build_all(["physics_sums", "adamw", "padded_physics", "conv3x3"], verbose=True)
+    built = build_all(["physics_sums", "adamw", "padded_physics", "conv3x3", "group_norm"],
+                      verbose=True)
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
     errors = check_kernels()
@@ -2752,6 +2973,8 @@ def main() -> int:
     errors.update(check_k3())
     check_k3_against_k1()
     errors.update(check_k4())
+    errors.update(check_group_norm())
+    gn_counts = drive_resnet_norms()
     parallel = drive_parallel_paths(smi)
     streaming = drive_streaming(smi)
     probe = drive_probe()
@@ -2764,6 +2987,7 @@ def main() -> int:
     k3_times = time_k3()
     k4_times = time_k4()
     k2_times = time_adamw()
+    gn_times = time_group_norm()
     rates = {name: [] for name in ("adamw", "pallas_adamw")}
     for name in ("adamw", "pallas_adamw", "pallas_adamw", "adamw"):
         rates[name].append(time_training(name))
@@ -2841,6 +3065,17 @@ def main() -> int:
             "replaces": f"physics_informed_image_segmentation_tpu/ops/pallas_conv.py:{line}",
             "launches": probe["counts"][name], "max_abs_err": errors[name],
             **k4_times["rows"][name]})
+    gn_root = gn_times["root"]
+    for direction in ("fwd", "bwd"):
+        kernels.append({
+            "name": f"group_norm_{direction}", "route": "cuda",
+            "source": f"{PKG}/csrc/group_norm.cu",
+            "replaces": None, "launches": gn_counts[f"group_norm_{direction}"],
+            "max_abs_err": errors[f"group_norm_{direction}"],
+            "ms": gn_root[f"{direction}_ms"], "bound_ms": gn_root[f"floor_{direction}_ms"],
+            "bound_by": "bytes", "plain_ms": None,
+            "library_ms": gn_root[f"plain_{direction}_ms"]})
+    print(json.dumps({"group_norm_ms_per_call": gn_times, "card": smi}))
     mres = parallel["halo"]["res"]
     print(json.dumps({"megapixel_step": {
         "image": mres["image"], "base_channels": 64, "precision": "bf16", "batch": 1,

@@ -12,12 +12,14 @@ The module names are that code's, so the ``state_dict`` keys are too
 * A 1-channel image is repeated to 3 channels.
 * ResNetV2 encoder: weight-standardised convolutions (``StdConv2d``: the
   weight less its mean, over its population standard deviation over
-  (cin, kh, kw) with 1e-5 under the root) and GroupNorm.  Root: 7×7 stride
-  2, GroupNorm(32, eps 1e-6), ReLU (skip 3), then a 3×3 stride-2 max pool
-  with no padding.  Body: bottleneck blocks of (3, 4, 9) units; the first
-  block's output is zero-padded at the bottom and right to a quarter of the
-  input side (skip 2: 255² → 256² at 1024²), and the main path goes on
-  unpadded; the second block's output is skip 1.
+  (cin, kh, kw) with 1e-5 under the root) and GroupNorm, each GroupNorm
+  with its residual add and ReLU one call of ``ops.group_norm``'s kernels
+  on the card.  Root: 7×7 stride 2, GroupNorm(32, eps 1e-6), ReLU (skip
+  3), then a 3×3 stride-2 max pool with no padding.  Body: bottleneck
+  blocks of (3, 4, 9) units; the first block's output is zero-padded at the
+  bottom and right to a quarter of the input side (skip 2: 255² → 256² at
+  1024²), and the main path goes on unpadded; the second block's output is
+  skip 1.
 * Embeddings: a 1×1 convolution to the hidden width, flattened to tokens
   (a 64×64 grid at 1024²: 4096 tokens), a learned position table, dropout.
 * Encoder: pre-LN blocks (LayerNorm eps 1e-6): ``x + out(attn(LN(x)))``,
@@ -53,7 +55,11 @@ mask after fc2.  ``attention_counts`` totals the attention calls and
 their query-key ``pairs`` (batch × heads × queries × keys);
 ``layout_counts`` totals the inputs of the ten decoder and head
 convolutions that were channels-last (``nhwc``) and those that were not
-(``nchw``).
+(``nchw``); ``norm_counts`` totals the ResNet's GroupNorm calls (52 a
+forward at the published block units) that took the hand-written kernels
+(``fused``: ``ops/group_norm.py``, every call on the card, which raises on
+a map they do not take) and those that took their plain PyTorch version
+(``plain``: every call on the CPU).
 
 Under ``torch.profiler`` the forward opens the spans ``piis.resnet`` (root
 and body), ``piis.transformer`` (embeddings, blocks, final norm) with
@@ -72,6 +78,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ..ops.group_norm import group_norm_act
 from ..utils.profiling import span
 
 __all__ = ["TransUNet"]
@@ -107,7 +114,13 @@ def _std(cin: int, cout: int, k: int, stride: int = 1) -> StdConv2d:
 
 class PreActBottleneck(nn.Module):
     """1×1 → GN → ReLU → 3×3 (stride) → GN → ReLU → 1×1 → GN, plus the
-    input (or its strided 1×1 projection with one group a channel), ReLU."""
+    input (or its strided 1×1 projection with one group a channel), ReLU.
+    Each GN with what follows it is one :func:`group_norm_act`: gn1's and
+    gn2's outputs keep the convolution's type (the next convolution reads
+    them), gn_proj's is float32, and so is gn3's where it is the next
+    unit's residual, with a bf16 copy for the next unit's convolutions
+    (``last``: the block's last unit, whose output only convolutions and a
+    skip read, keeps the convolution's type and makes no copy)."""
 
     def __init__(self, cin: int, cout: int, cmid: int, stride: int = 1):
         super().__init__()
@@ -121,24 +134,37 @@ class PreActBottleneck(nn.Module):
             self.downsample = _std(cin, cout, 1, stride)
             self.gn_proj = nn.GroupNorm(cout, cout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = self.gn_proj(self.downsample(x)) if hasattr(self, "downsample") else x
-        y = F.relu(self.gn1(self.conv1(x)))
-        y = F.relu(self.gn2(self.conv2(y)))
-        y = self.gn3(self.conv3(y))
-        return F.relu(residual + y)
+    def forward(self, x: torch.Tensor, counts: dict, x_low: Optional[torch.Tensor] = None,
+                last: bool = False):
+        """``(y, y_low)``: the unit's output, and where the kernels wrote it
+        in float32 from bf16 maps, its bf16 copy for the next unit's
+        convolutions (else None).  ``x_low``: the input's bf16 copy, read by
+        the convolutions in place of ``x`` (the residual)."""
+        conv_in = x if x_low is None else x_low
+        residual = x
+        if hasattr(self, "downsample"):
+            residual = group_norm_act(self.downsample(conv_in), self.gn_proj, counts, relu=False)
+        y = group_norm_act(self.conv1(conv_in), self.gn1, counts, keep_dtype=True)
+        y = group_norm_act(self.conv2(y), self.gn2, counts, keep_dtype=True)
+        if last:
+            return group_norm_act(self.conv3(y), self.gn3, counts, residual=residual,
+                                  keep_dtype=True), None
+        return group_norm_act(self.conv3(y), self.gn3, counts, residual=residual, low_copy=True)
 
 
 class ResNetV2(nn.Module):
     """Root and three bottleneck blocks; ``forward`` returns the last
-    block's output and the skips in the decoder's order."""
+    block's output and the skips in the decoder's order.  The root's and
+    each block's output keep the convolution's type: the max pool, the
+    next block's convolutions, the token embedding and the skips'
+    concatenation read them, and the convolutions after all of these cast
+    to it first."""
 
     def __init__(self, block_units: tuple, width: int):
         super().__init__()
-        self.root = nn.Sequential(OrderedDict([
+        self.root = nn.ModuleDict(OrderedDict([
             ("conv", StdConv2d(3, width, 7, stride=2, padding=3, bias=False)),
             ("gn", nn.GroupNorm(32, width, eps=1e-6)),
-            ("relu", nn.ReLU()),
         ]))
         blocks = []
         for i, (units, cin, cout, cmid, stride) in enumerate(zip(
@@ -150,16 +176,19 @@ class ResNetV2(nn.Module):
             blocks.append((f"block{i + 1}", nn.Sequential(OrderedDict(unit))))
         self.body = nn.Sequential(OrderedDict(blocks))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, counts: dict):
         side = x.shape[2]
-        x = self.root(x)
+        x = group_norm_act(self.root.conv(x), self.root.gn, counts, keep_dtype=True)
         features = [x]
         x = F.max_pool2d(x, 3, 2)
-        for i, block in enumerate(self.body[:-1]):
-            x = block(x)
-            pad = side // 4 // (i + 1) - x.shape[2]  # 1 after the first block, else 0
-            features.append(F.pad(x, (0, pad, 0, pad)) if pad else x)
-        return self.body[-1](x), features[::-1]
+        for i, block in enumerate(self.body):
+            x_low = None
+            for u, unit in enumerate(block):
+                x, x_low = unit(x, counts, x_low, last=u == len(block) - 1)
+            if i < len(self.body) - 1:
+                pad = side // 4 // (i + 1) - x.shape[2]  # 1 after the first block, else 0
+                features.append(F.pad(x, (0, pad, 0, pad)) if pad else x)
+        return x, features[::-1]
 
 
 class Embeddings(nn.Module):
@@ -330,6 +359,7 @@ class TransUNet(nn.Module):
             nn.Conv2d(decoder_channels[-1], out_channels, 3, padding=1), nn.Identity())
         self.attention_counts = {"calls": 0, "pairs": 0}
         self.layout_counts = {"nhwc": 0, "nchw": 0}
+        self.norm_counts = {"fused": 0, "plain": 0}
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -361,7 +391,7 @@ class TransUNet(nn.Module):
             x = x.repeat(1, 3, 1, 1)
         emb = self.transformer.embeddings
         with span("piis.resnet"):
-            x, features = emb.hybrid_model(x)
+            x, features = emb.hybrid_model(x, self.norm_counts)
         with span("piis.transformer"):
             tokens = self.transformer.encoder(emb(x, generator), generator,
                                               self.attention_counts)

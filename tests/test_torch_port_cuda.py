@@ -4,7 +4,8 @@ convolution kernels (K4) against their plain versions, and the Stage II
 objective, the train step, the halo physics loss, the Predictor, a
 three-stage ablation variant, a batched study, TransUNet's channels-last
 decoder (no NCHW batch-norm kernel, no layout transpose but around the
-one-channel head), the reference's
+one-channel head), the GroupNorm kernels of its ResNet against float64
+and on the model's path, the reference's
 ``DiceBCEPDELoss`` (``compat.py``), the int8 convolution of
 ``scripts/quant_probe.py`` (exact against float64) and the burn-in's
 deterministic launch (bit-equal across two processes) on the card.
@@ -25,6 +26,7 @@ atol 1e-2).
 """
 
 import json
+import re
 
 import numpy as np
 import pytest
@@ -915,3 +917,247 @@ def test_transunet_decoder_launches_no_nchw_kernels(cuda):
     assert any("channels_last" in n for n in seconds)
     assert not nchw_bn, nchw_bn
     assert len(transposes) <= 3 and all(on_head for _, on_head in transposes), transposes
+
+
+# ---- GroupNorm, residual and ReLU (ops/group_norm.py, csrc/group_norm.cu) ----
+
+def _resnet_norm_sites(device, size=1024):
+    """Every GroupNorm call of TransUNet's ResNetV2 at ``size``² (batch 1,
+    bf16 autocast), as ``(C, H, W, groups, eps, residual, relu, keep_dtype)``
+    in call order: recorded from the model itself."""
+    from physics_informed_image_segmentation_tpu_torch.models import TransUNet
+    from physics_informed_image_segmentation_tpu_torch.models import transunet as T
+
+    sites, real = [], T.group_norm_act
+
+    def record(x, norm, counts, **kw):
+        sites.append((*x.shape[1:], norm.num_groups, norm.eps, kw.get("residual") is not None,
+                      kw.get("relu", True), kw.get("keep_dtype", False)))
+        return real(x, norm, counts, **kw)
+
+    model = TransUNet(img_size=size).to(device)
+    T.group_norm_act = record
+    try:
+        with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+            model.transformer.embeddings.hybrid_model(
+                torch.rand(1, 3, size, size, device=device), model.norm_counts)
+    finally:
+        T.group_norm_act = real
+    return sites
+
+
+def _gn_operands(site, dtype, device, batch, seed):
+    c, h, w, groups, eps, residual, relu, keep = site
+    out = dtype if keep else torch.float32
+    g = torch.Generator(device=device).manual_seed(seed)
+    # a conv output's scale and offset differ by channel
+    scale = 0.5 + torch.rand(1, c, 1, 1, device=device, generator=g)
+    x = torch.randn(batch, c, h, w, device=device, generator=g) * scale + 0.3
+    weight = 1.0 + 0.2 * torch.randn(c, device=device, generator=g)
+    bias = 0.1 * torch.randn(c, device=device, generator=g)
+    r = torch.randn(batch, c, h, w, device=device, generator=g) if residual else None
+    dy = torch.randn(batch, c, h, w, device=device, generator=g).to(out)
+    return x.to(dtype), weight, bias, r, dy, out
+
+
+def _gn_kernel(x, weight, bias, r, dy, groups, eps, relu, out):
+    from physics_informed_image_segmentation_tpu_torch.ops.group_norm import GroupNormAct
+
+    ins = [t.clone().requires_grad_(True) for t in (x, weight, bias) + ((r,) if r is not None
+                                                                         else ())]
+    y = GroupNormAct.apply(*ins[:3], ins[3] if r is not None else None, groups, eps, relu, out,
+                           True)
+    return y.detach(), torch.autograd.grad(y, ins, dy)
+
+
+def _gn_reference(x, weight, bias, r, dy, groups, eps, relu, passed):
+    """float64 GroupNorm (+ r), and its gradients through the ReLU's
+    decisions ``passed``: a pre-activation within float32 rounding of 0 may
+    fall either way in the kernel, and its gradient with it."""
+    ins = [t.double().requires_grad_(True) for t in (x, weight, bias) + ((r,) if r is not None
+                                                                          else ())]
+    z = torch.nn.functional.group_norm(ins[0], groups, ins[1], ins[2], eps)
+    if r is not None:
+        z = z + ins[3]
+    y = torch.where(passed, z, torch.zeros_like(z)) if relu else z
+    return z.detach(), torch.autograd.grad(y, ins, dy.double())
+
+
+def _gn_close(k, p, rtol, atol_rel):
+    err = (k.double() - p).abs()
+    return bool(torch.all(err <= atol_rel * p.abs().max() + rtol * p.abs())), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_kernel_at_every_resnet_site(cuda, dtype):
+    """The kernels against float64 at the shape of each of the 52 norms of
+    the ResNet at 1024², batch 8 (15 distinct sites), forward and every
+    gradient.  Tolerances: the output is one rounding of a float32 value
+    (bf16: 2^-8, float32: 1e-5 relative) plus 1e-5 of the largest; the
+    gradients 1e-5 relative plus 1e-5 of the largest, and one bf16 rounding
+    for a bf16 dx; the residual's gradient exact.  The ReLU's decisions
+    may differ from float64's only within 1e-5 of 0."""
+    sites = _resnet_norm_sites(cuda)
+    assert len(sites) == 52
+    for i, site in enumerate(dict.fromkeys(sites)):
+        c, h, w, groups, eps, residual, relu, keep = site
+        x, weight, bias, r, dy, out = _gn_operands(site, dtype, cuda, 8, seed=100 + i)
+        y, grads = _gn_kernel(x, weight, bias, r, dy, groups, eps, relu, out)
+        passed = y > 0 if relu else None
+        z, ref = _gn_reference(x, weight, bias, r, dy, groups, eps, relu, passed)
+        assert y.dtype == out and grads[0].dtype == dtype
+        y_ref = z.clamp_min(0) if relu else z
+        ok_y, err_y = _gn_close(y, y_ref, 2.0 ** -8 if out == torch.bfloat16 else 1e-5, 1e-5)
+        assert ok_y, (site, err_y)
+        if relu:
+            flipped = passed != (z > 0)
+            assert bool(torch.all(z[flipped].abs() <= 1e-5)), (site, int(flipped.sum()))
+        for name, k, p in zip(("dx", "dgamma", "dbeta"), grads, ref):
+            rtol = 2.0 ** -8 if name == "dx" and dtype == torch.bfloat16 else 1e-5
+            ok, err = _gn_close(k, p, rtol, 1e-5)
+            assert ok, (site, name, err)
+        if residual:
+            assert grads[3].dtype == torch.float32 and torch.equal(grads[3].double(), ref[3])
+        del x, y, z, grads, ref
+
+
+def test_group_norm_kernel_takes_a_channels_last_gradient(cuda):
+    """An upstream gradient in channels-last strides (a skip's, since the
+    decoder runs NHWC) gives the same bits as the same values in NCHW."""
+    site = (64, 255, 255, 32, 1e-6, False, True, True)
+    x, weight, bias, r, dy, out = _gn_operands(site, torch.bfloat16, cuda, 2, seed=7)
+    _, nchw = _gn_kernel(x, weight, bias, r, dy, 32, 1e-6, True, out)
+    _, nhwc = _gn_kernel(x, weight, bias, r, dy.contiguous(memory_format=torch.channels_last),
+                         32, 1e-6, True, out)
+    for a, b in zip(nchw, nhwc):
+        assert torch.equal(a, b)
+
+
+def test_group_norm_kernel_bf16_copy_and_its_gradient(cuda):
+    """On the residual stream (bf16 x, float32 y) the forward's bf16 copy is
+    y cast to bf16, bit for bit, and a backward given both gradients equals
+    one given their float32 sum, bit for bit."""
+    from physics_informed_image_segmentation_tpu_torch.ops.group_norm import GroupNormAct
+
+    site = (256, 65, 63, 32, 1e-6, True, True, False)
+    x, weight, bias, r, dy, out = _gn_operands(site, torch.bfloat16, cuda, 2, seed=11)
+    dy_low = torch.randn(x.shape, device=cuda).to(torch.bfloat16)
+    ins = [t.clone().requires_grad_(True) for t in (x, weight, bias, r)]
+    y, y_low = GroupNormAct.apply(*ins, 32, 1e-6, True, torch.float32, True, True)
+    assert y_low.dtype == torch.bfloat16 and torch.equal(y_low, y.to(torch.bfloat16))
+    both = torch.autograd.grad((y, y_low), ins, (dy, dy_low))
+    _, summed = _gn_kernel(x, weight, bias, r, dy + dy_low.float(), 32, 1e-6, True, out)
+    assert all(torch.equal(a, b) for a, b in zip(both, summed))
+
+
+def test_group_norm_kernel_repeats_and_routes(cuda):
+    """Same inputs, same bits (no atomics); a group all below 0 after the
+    shift passes no gradient; ``group_norm_act`` takes bf16 and float32
+    NCHW maps to the kernels and raises on a float64, channels-last or
+    misaligned map: the card never falls back to PyTorch's GroupNorm."""
+    from physics_informed_image_segmentation_tpu_torch.ops import group_norm as GN
+
+    site = (256, 65, 63, 32, 1e-6, True, True, False)
+    x, weight, bias, r, dy, out = _gn_operands(site, torch.bfloat16, cuda, 3, seed=9)
+    first, second = (_gn_kernel(x, weight, bias, r, dy, 32, 1e-6, True, out) for _ in range(2))
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+    bias[:8] = -50.0  # the first group's every pre-activation is far below 0
+    y, grads = _gn_kernel(x, weight, bias, r, dy, 32, 1e-6, True, out)
+    assert not bool(y[:, :8].gt(0).any()) and not bool(grads[3][:, :8].any())
+    assert not bool(grads[0][:, :8].any()) and not bool(grads[1][:8].any())
+    norm = torch.nn.GroupNorm(32, 256, eps=1e-6).to(cuda)
+    for t in (x, x.float()):
+        counts = {"fused": 0, "plain": 0}
+        assert GN.group_norm_act(t, norm, counts, keep_dtype=True).dtype == t.dtype
+        assert counts == {"fused": 1, "plain": 0}
+    misaligned = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)[1:1 + x.numel()]
+    for t, reason in ((x.double(), "type"),
+                      (x.contiguous(memory_format=torch.channels_last), "NCHW-contiguous"),
+                      (misaligned.view(x.shape).copy_(x), "16-byte aligned")):
+        assert GN.kernel_refusals(t, norm.weight, norm.bias, None, t.dtype)
+        with pytest.raises(ValueError, match=reason):
+            GN.group_norm_act(t, norm, {"fused": 0, "plain": 0}, keep_dtype=True)
+
+
+def test_group_norm_kernel_takes_an_offset_gradient(cuda):
+    """Gradients that are contiguous views at an odd offset (not 16-byte
+    aligned, where the kernels read in 16-byte vectors), for ``y`` and for
+    its bf16 copy, give the same bits as the same values aligned."""
+    from physics_informed_image_segmentation_tpu_torch.ops.group_norm import GroupNormAct
+
+    def offset(t):
+        view = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)[1:1 + t.numel()]
+        view = view.view(t.shape).copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    site = (256, 65, 63, 32, 1e-6, True, True, False)
+    x, weight, bias, r, dy, out = _gn_operands(site, torch.bfloat16, cuda, 2, seed=13)
+    dy_low = torch.randn(x.shape, device=cuda).to(torch.bfloat16)
+    got = []
+    for grads in ((dy, dy_low), (offset(dy), offset(dy_low))):
+        ins = [t.clone().requires_grad_(True) for t in (x, weight, bias, r)]
+        y, y_low = GroupNormAct.apply(*ins, 32, 1e-6, True, torch.float32, True, True)
+        got.append(torch.autograd.grad((y, y_low), ins, grads))
+        got.append(_gn_kernel(x, weight, bias, r, grads[0], 32, 1e-6, True, out)[1])
+    torch.cuda.synchronize()
+    for a, b in zip(got[:2], got[2:]):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_transunet_resnet_norms_take_the_kernels(cuda):
+    """A bf16 forward and backward of TransUNet at 1024² (batch 2): every
+    one of the ResNet's 52 norms takes the kernels (52 fused calls a
+    forward), PyTorch's GroupNorm never runs (no ``native_group_norm``, no
+    ``RowwiseMomentsCUDAKernel``), and no float32 map is saved for the
+    backward inside the ResNet.  Prints the ResNet's peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from physics_informed_image_segmentation_tpu_torch.models import TransUNet
+    from physics_informed_image_segmentation_tpu_torch.ops import group_norm as GN
+
+    size, b = 1024, 2
+    model = TransUNet(img_size=size).to(cuda).train()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    images = torch.rand(b, 1, size, size, device=cuda, generator=g)
+    saved = []
+
+    def pack(t):
+        saved.append((t.dtype, tuple(t.shape)))
+        return t
+
+    def step(watch=False):
+        model.norm_counts.update(fused=0, plain=0)
+        with torch.autocast("cuda", torch.bfloat16):
+            x = images.repeat(1, 3, 1, 1)
+            if watch:
+                with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                    feats, skips = model.transformer.embeddings.hybrid_model(x, model.norm_counts)
+            else:
+                feats, skips = model.transformer.embeddings.hybrid_model(x, model.norm_counts)
+        loss = feats.float().square().mean() + sum(s.float().mean() for s in skips)
+        torch.autograd.grad(loss, list(model.transformer.embeddings.hybrid_model.parameters()))
+
+    step()
+    GN.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(watch=True)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert model.norm_counts == {"fused": 52, "plain": 0}
+    assert GN.launch_counts == {"group_norm_fwd": 52, "group_norm_bwd": 52}
+    host = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU}
+    device = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert not [n for n in host if "group_norm" in n], host  # aten::group_norm, native_...
+    # GroupNorm's statistics kernel (one type argument; LayerNorm's, which the
+    # weight standardisation launches, has three)
+    assert not [n for n in device if re.search(r"RowwiseMomentsCUDAKernel<[^,>]*>\(", n)]
+    assert any("group_norm_fwd_apply" in n for n in device)
+    # maps: (batch, C, H, W); the weights' standardisation saves float32 weights
+    big_f32 = [shape for dtype, shape in saved
+               if dtype == torch.float32 and len(shape) == 4 and shape[0] == b]
+    print(json.dumps({"resnet_peak_gib": peak, "saved_float32_maps": big_f32}))
+    assert not big_f32, big_f32
