@@ -91,8 +91,9 @@ def main(argv=None):
     )
     parser.add_argument(
         "--model", type=str, default="unet", choices=list(MODELS),
-        help="Architecture (default: unet; transunet is R50-ViT-B/16 at its published widths, "
-             "built for the images' side)",
+        help="Architecture (default: unet; transunet is R50-ViT-B/16 and swinunet Swin-Unet "
+             "(Swin-T, window 7) at their published widths, built for the images' side, a "
+             "multiple of 224 for swinunet)",
     )
     parser.add_argument(
         "--checkpoint-every", type=int, default=0,

@@ -27,7 +27,7 @@ import torch
 
 from ..data import CocoSegmentationSource, DeviceDataset, fold_seed, subset_fraction_indices
 from ..data.pipeline import num_batches
-from ..models import build_model, count_parameters
+from ..models import build_model, count_parameters, data_side
 from ..utils.device import resolve_device, set_precision
 from .checkpoint import latest_checkpoint_step, load_params, restore_train_state, save_params
 from .csvlog import save_test_metrics
@@ -198,7 +198,9 @@ def train(
     run is bit-identical to an uninterrupted one on the same device.
 
     ``model_name``: a name of :data:`..models.MODELS`, built by
-    :func:`..models.build_model` for the training images' side.
+    :func:`..models.build_model` for the training images' side.  Images
+    read from ``data_root`` are resized to the model's
+    :func:`..models.data_side`.
     """
     device = resolve_device(device)
     precision = set_precision(precision)
@@ -224,18 +226,19 @@ def train(
     if train_data is None:
         img_dir = base / "images"
         ann_dir = img_dir / "annotation"
+        side = data_side(model_name)
         if verbose:
             print("\nLoading datasets...")
         train_data = load_device_dataset(
-            img_dir / "training", ann_dir / "training_annotation.json", device
+            img_dir / "training", ann_dir / "training_annotation.json", device, (side, side)
         )
         val_data = load_device_dataset(
-            img_dir / "validation", ann_dir / "validation_annotation.json", device
+            img_dir / "validation", ann_dir / "validation_annotation.json", device, (side, side)
         )
         test_json = ann_dir / "testing_annotation.json"
         test_dir = img_dir / "testing"
         if test_dir.exists() and test_json.exists():
-            test_data = load_device_dataset(test_dir, test_json, device)
+            test_data = load_device_dataset(test_dir, test_json, device, (side, side))
     else:
         train_data, val_data = train_data.to(device), val_data.to(device)
         if test_data is not None:

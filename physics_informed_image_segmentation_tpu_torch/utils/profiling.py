@@ -28,11 +28,14 @@ __all__ = ["trace", "sync", "span", "SPANS"]
 # piis.sync, piis.log.  Serving: piis.predict > piis.upload, piis.forward,
 # piis.threshold (with a threshold) and piis.fetch once a chunk, and one
 # more piis.fetch for the last chunk's unpack.  Inside piis.forward, a
-# TransUNet's: piis.resnet, piis.transformer > piis.attention, piis.decoder.
+# TransUNet's: piis.resnet, piis.transformer > piis.attention, piis.decoder;
+# a Swin-Unet's: piis.transformer and piis.decoder, each > piis.window,
+# piis.attention, piis.resample.
 SPANS = ("piis.epoch", "piis.plan", "piis.step", "piis.forward", "piis.objective",
          "piis.backward", "piis.optimizer", "piis.metrics", "piis.sync", "piis.val",
          "piis.log", "piis.predict", "piis.upload", "piis.fetch", "piis.threshold",
-         "piis.resnet", "piis.transformer", "piis.attention", "piis.decoder")
+         "piis.resnet", "piis.transformer", "piis.attention", "piis.decoder",
+         "piis.window", "piis.resample")
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -1161,3 +1161,92 @@ def test_transunet_resnet_norms_take_the_kernels(cuda):
                if dtype == torch.float32 and len(shape) == 4 and shape[0] == b]
     print(json.dumps({"resnet_peak_gib": peak, "saved_float32_maps": big_f32}))
     assert not big_f32, big_f32
+
+
+# ---- Swin-Unet's window attention (models/swin_unet.py) ----
+
+FUSED_SDPA = ("aten::_scaled_dot_product_efficient_attention",
+              "aten::_scaled_dot_product_cudnn_attention",
+              "aten::_scaled_dot_product_flash_attention")
+
+
+def _swin_block(seed=0):
+    """A shifted Swin block of the first stage (width 96, 3 heads, window 7)
+    on a 56² map, 64 windows, in float64 on the CPU: its weights torch's
+    defaults under ``seed``, its bias table normal(0.5), wide enough that the
+    bias moves the scores by more than bf16's rounding."""
+    from physics_informed_image_segmentation_tpu_torch.models.swin_unet import (
+        SwinTransformerBlock,
+    )
+
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        block = SwinTransformerBlock(96, 56, 3, 7, 3, 4.0, 0.0).double()
+        with torch.no_grad():
+            block.attn.relative_position_bias_table.normal_(0.0, 0.5)
+    return block
+
+
+def _swin_grads(block, x, cot, autocast=False):
+    counts, windows = {"calls": 0, "pairs": 0}, {"windows": 0, "shifted": 0}
+    with torch.autocast("cuda", torch.bfloat16, enabled=autocast):
+        out = block(x, None, counts, windows)
+    table = block.attn.relative_position_bias_table
+    g_table, g_x = torch.autograd.grad(out, [table, x], cot.to(out.dtype))
+    assert counts["calls"] == 1 and windows == {"windows": 2 * 64, "shifted": 1}
+    return out.double().cpu(), g_table.double().cpu(), g_x.double().cpu()
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+# Relative gaps of the output, the table's gradient and the input's against
+# float64.  float32: the kernels' own order of summation, 4.6e-7 at most
+# measured (the table's gradient); bf16 autocast: q, k, v, the bias and dO
+# rounded to 8 bits of mantissa, 6.5e-3 at most measured (the table's
+# gradient, a sum over both images and 64 windows), 9e-4 the others
+@pytest.mark.parametrize("autocast, tol", [(False, 1e-5), (True, 2e-2)], ids=["f32", "bf16"])
+def test_swin_window_attention_runs_fused_and_learns_its_bias(cuda, autocast, tol):
+    """A shifted Swin block's forward and backward on the card: the
+    attention is one fused scaled-dot-product call (no math-backend call,
+    no softmax of the CPU's plain path), and the output, the input's
+    gradient and the bias table's gradient, which only the fused backward
+    gives, match the plain path's in float64 on the CPU.  Prints the
+    relative gaps and the attention's device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    block = _swin_block()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 56 * 56, 96, generator=g, dtype=torch.float64)
+    cot = torch.randn(2, 56 * 56, 96, generator=g, dtype=torch.float64)
+    ref = _swin_grads(block, x.clone().requires_grad_(), cot)
+    card = block.float().to(cuda)
+    xc = x.float().to(cuda).requires_grad_()
+    _swin_grads(card, xc, cot.to(cuda), autocast)  # plans and workspaces
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = _swin_grads(card, xc, cot.to(cuda), autocast)
+        torch.cuda.synchronize()
+    ops = {e.name for e in prof.events()}
+    fused = [n for n in FUSED_SDPA if n in ops]
+    kernels = sorted({e.name[:80] for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and ("fmha" in e.name.lower() or "attention" in e.name.lower()
+                           or "sdpa" in e.name.lower())})
+    gaps = [_rel(a, b) for a, b in zip(got, ref)]
+    print(json.dumps({"autocast": autocast, "fused": fused, "kernels": kernels,
+                      "gaps_out_table_x": gaps}))
+    assert len(fused) == 1 and "aten::_scaled_dot_product_attention_math" not in ops
+    assert "aten::_softmax" not in ops
+    assert float(got[1].norm()) > 0 and max(gaps) < tol, gaps
+
+
+def test_swin_window_attention_has_no_math_fallback(cuda):
+    """Where no fused backend takes the call (float64 on the card), the block
+    raises instead of running the math backend's (windows, heads, N, N)
+    scores."""
+    block = _swin_block().to(cuda)
+    x = torch.randn(2, 56 * 56, 96, device=cuda, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="kernel"):
+        block(x, None, {"calls": 0, "pairs": 0}, {"windows": 0, "shifted": 0})

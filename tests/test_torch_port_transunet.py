@@ -393,11 +393,16 @@ class _Built(Exception):
     """Raised by a recording constructor once it has taken its arguments."""
 
 
-# What each model's constructor takes of the run's settings, from train()
-# (base 4, "torch" init) and from a Predictor (base 4; the default init).
+# Each model's image side and small widths here (the Swin-Unet's side is a
+# multiple of 224), and what its constructor takes of the run's settings,
+# from train() (base 4, "torch" init) and from a Predictor (base 4; the
+# default init).
+SIDES = {"unet": S, "transunet": S, "swinunet": 224}
+WIDTHS = {"unet": {}, "transunet": SMALL, "swinunet": dict(embed_dim=24, num_heads=(1, 2, 4, 8))}
 TAKES = {"unet": (dict(base_channels=4, param_init="torch"),
                   dict(base_channels=4, param_init="lecun")),
-         "transunet": (dict(img_size=S), dict(img_size=S))}
+         "transunet": (dict(img_size=S), dict(img_size=S)),
+         "swinunet": (dict(img_size=224), dict(img_size=224))}
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
@@ -405,10 +410,10 @@ def test_build_model_maps_the_run_settings(monkeypatch, tmp_path, name):
     """``build_model`` alone maps a run's settings to each model: the model
     has the registered type, and ``train()`` and a ``Predictor`` hand it the
     same settings, which reach the constructor as ``TAKES`` says."""
-    widths = SMALL if name == "transunet" else {}
-    model = build_model(name, image_size=S, base_channels=4, param_init="torch",
-                        generator=torch.Generator().manual_seed(0), **widths)
-    assert type(model) is MODELS[name] and getattr(model, "img_size", S) == S
+    side = SIDES[name]
+    model = build_model(name, image_size=side, base_channels=4, param_init="torch",
+                        generator=torch.Generator().manual_seed(0), **WIDTHS[name])
+    assert type(model) is MODELS[name] and getattr(model, "img_size", side) == side
 
     seen = []
 
@@ -417,14 +422,14 @@ def test_build_model_maps_the_run_settings(monkeypatch, tmp_path, name):
         raise _Built
 
     monkeypatch.setitem(MODELS, name, record)
-    images, masks = make_blobs(2, S, S, seed=0)
+    images, masks = make_blobs(2, side, side, seed=0)
     data = DeviceDataset.from_numpy(images, masks, "cpu")
     with pytest.raises(_Built):
         loop.train(train_data=data, val_data=data, output_dir=tmp_path, models_dir=tmp_path,
                    device="cpu", precision="f32", make_plots=False, verbose=False,
                    base_channels=4, param_init="torch", model_name=name)
     with pytest.raises(_Built):
-        Predictor(tmp_path / "absent.pth", model=name, image_size=(S, S), base_channels=4,
+        Predictor(tmp_path / "absent.pth", model=name, image_size=(side, side), base_channels=4,
                   device="cpu")
     assert isinstance(seen[0].pop("generator"), torch.Generator)
     assert seen[1].pop("generator") is None
