@@ -71,6 +71,11 @@ final result line):
    H*W below a pack, one group, in bf16 and float32, repeated bit for bit,
    and a bf16 forward and backward of TransUNet's ResNet at 1024² that
    counts 52 launches each way;
+   then Swin-Unet's LayerNorm (``ops/layer_norm.py``) against float64 at
+   every distinct site of an 896² step, batch 8, in the sites' types, and at
+   odd row counts in every type pair, repeated bit for bit, and a bf16
+   forward and backward of Swin-Unet at 896² that counts 38 launches each
+   way (a no-grad forward 38 and 0);
 9. the data×space path at world 1 (NCCL through a file store): the
    megapixel train step (``parallel/megapixel.py``: 1024x1024, base 64,
    bf16, 3 steps) with K3's launch counts and its peak memory; one f32
@@ -1971,6 +1976,212 @@ def time_group_norm() -> dict:
     return rows
 
 
+def swin_norm_sites(batch: int = 8, size: int = 896) -> list:
+    """Every LayerNorm call of Swin-Unet at ``size``² under bf16 autocast,
+    as ``(C, rows at batch, input type, output type)`` in call order:
+    recorded from the model itself (a batch-1 no-grad forward)."""
+    from physics_informed_image_segmentation_tpu_torch.models import SwinUnet
+    from physics_informed_image_segmentation_tpu_torch.ops import layer_norm as LN
+
+    sites, real = [], LN.LayerNormFn.apply
+
+    def record(x, weight, bias, eps, out_dtype):
+        sites.append((x.shape[-1], batch * (x.numel() // x.shape[-1]), x.dtype, out_dtype))
+        return real(x, weight, bias, eps, out_dtype)
+
+    model = SwinUnet(img_size=size).to("cuda").eval()
+    LN.LayerNormFn.apply = record
+    try:
+        with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+            model(torch.rand(1, 1, size, size, device="cuda"))
+    finally:
+        LN.LayerNormFn.apply = real
+    del model
+    torch.cuda.empty_cache()
+    return sites
+
+
+def ln_case(c, rows, dtype, out, seed):
+    """x with a per-row offset and scale, gamma and beta away from 1 and 0,
+    dy in the output's type."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, c, device="cuda", generator=g)
+         * (0.5 + torch.rand(rows, 1, device="cuda", generator=g))
+         + torch.randn(rows, 1, device="cuda", generator=g)).to(dtype)
+    weight = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    dy = torch.randn(rows, c, device="cuda", generator=g).to(out)
+    return x, weight, bias, dy
+
+
+def ln_kernel(x, weight, bias, dy, out):
+    from physics_informed_image_segmentation_tpu_torch.ops.layer_norm import LayerNormFn
+
+    ins = [t.clone().requires_grad_(True) for t in (x, weight, bias)]
+    y = LayerNormFn.apply(*ins, 1e-5, out)
+    return (y.detach(), *torch.autograd.grad(y, ins, dy))
+
+
+def check_layer_norm() -> dict:
+    """Swin-Unet's LayerNorm kernels (``ops/layer_norm.py``) against float64
+    at every distinct site of an 896² step, batch 8, in the sites' types,
+    and at row counts that leave a block's row groups part empty, in every
+    type pair; repeated bit for bit.  Returns the largest errors at the x4
+    expand's site."""
+    from physics_informed_image_segmentation_tpu_torch.ops import layer_norm as LN
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(f"site C={c} rows={rows} {str(i)[6:]}->{str(o)[6:]}", c, rows, i, o)
+             for c, rows, i, o in dict.fromkeys(swin_norm_sites())]
+    cases += [(f"odd rows C={c} rows={rows} {str(i)[6:]}->{str(o)[6:]}", c, rows, i, o)
+              for c, rows in ((96, 1), (192, 3), (384, 7), (768, 5), (1536, 3), (96, 1001))
+              for i, o in ((f32, f32), (f32, bf16), (bf16, f32), (bf16, bf16))]
+    LN.reset_launch_counts()
+    errors = {}
+    for k, (label, c, rows, dtype, out) in enumerate(cases):
+        x, weight, bias, dy = ln_case(c, rows, dtype, out, seed=500 + k)
+        got = ln_kernel(x, weight, bias, dy, out)
+        ins = [t.double().requires_grad_(True) for t in (x, weight, bias)]
+        z = F.layer_norm(ins[0], (c,), ins[1], ins[2], 1e-5)
+        want = (z.detach(), *torch.autograd.grad(z, ins, dy.double()))
+        del ins, z
+        errs = []
+        for name, kv, p, t in zip(("y", "dx", "dgamma", "dbeta"), got, want,
+                                  (out, dtype, f32, f32)):
+            err = (kv.double() - p).abs()
+            errs.append(float(err.max()))
+            rtol = 2.0 ** -8 if t == bf16 else 1e-5
+            check(bool(torch.all(err <= 1e-5 * p.abs().max() + rtol * p.abs())),
+                  f"LayerNorm {label}: {name} beyond its tolerance ({errs[-1]:.3e})")
+            del err
+        print(f"LayerNorm {label}: max|d y| {errs[0]:.3e}, dx {errs[1]:.3e}, "
+              f"dgamma {errs[2]:.3e}, dbeta {errs[3]:.3e}")
+        if rows == 8 * 896 * 896:
+            errors["layer_norm_fwd"], errors["layer_norm_bwd"] = errs[0], max(errs[1:])
+        again = ln_kernel(x, weight, bias, dy, out)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"LayerNorm {label}: does not repeat bit for bit")
+        del x, dy, got, want, again
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    expected = {"layer_norm_fwd": 2 * len(cases), "layer_norm_bwd": 2 * len(cases)}
+    check(LN.launch_counts == expected,
+          f"LayerNorm launches {LN.launch_counts}, expected {expected}")
+    return errors
+
+
+def drive_swin_norms() -> dict:
+    """A bf16 forward and backward of Swin-Unet at 896², batch 2, as the
+    model runs it: every one of its 38 norms takes the kernels each way,
+    and a no-grad forward takes them forward only.  Returns the launch
+    counts of the training step."""
+    from physics_informed_image_segmentation_tpu_torch.models import SwinUnet
+    from physics_informed_image_segmentation_tpu_torch.ops import layer_norm as LN
+
+    size = 896
+    model = SwinUnet(img_size=size).to("cuda").train()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(2, 1, size, size, device="cuda", generator=g)
+    LN.reset_launch_counts()
+    with torch.autocast("cuda", torch.bfloat16):
+        out = model(x, torch.Generator(device="cuda").manual_seed(1))
+    torch.autograd.grad(out.mean(), list(model.parameters()))
+    torch.cuda.synchronize()
+    counts = dict(LN.launch_counts)
+    check(counts == {"layer_norm_fwd": 38, "layer_norm_bwd": 38},
+          f"Swin-Unet's step launched {counts}, expected 38 each way")
+    LN.reset_launch_counts()
+    with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+        model.eval()(x)
+    torch.cuda.synchronize()
+    check(LN.launch_counts == {"layer_norm_fwd": 38, "layer_norm_bwd": 0},
+          f"Swin-Unet's no-grad forward launched {LN.launch_counts}, expected 38 and 0")
+    print(f"Swin-Unet at {size}², batch 2, bf16: LayerNorm launches {counts} a step, "
+          f"{dict(LN.launch_counts)} a no-grad forward")
+    del model, x, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the sites timed, at 896², batch 8: label, C, rows, input type, output type
+LN_TIMED = [
+    ("x4 expand", 96, 8 * 896 * 896, torch.bfloat16, torch.bfloat16),
+    ("stage-1 norm1", 96, 8 * 224 * 224, torch.float32, torch.bfloat16),
+    ("PatchExpand to stage 1", 96, 8 * 224 * 224, torch.bfloat16, torch.float32),
+]
+
+
+def ln_floor_bytes(numel: int, in_size: int, out_size: int) -> tuple[int, int]:
+    """The byte floor of a forward and a backward, as
+    ``benchmark/metrics/ln_roofline.swinunet.py`` counts it: the input read
+    and the output written; the input and the output's gradient read and
+    the input's gradient written."""
+    return numel * (in_size + out_size), numel * (2 * in_size + out_size)
+
+
+def time_layer_norm() -> dict:
+    """The LayerNorm kernels at Swin-Unet's largest sites, forward and
+    backward, by CUDA events, against their byte floor, their plain
+    version on the card, and autocast's ``nn.LayerNorm`` path (a float32
+    ``layer_norm`` of the input cast up, and the output cast to bf16 where
+    a linear reads it; apart its backward); ms per call."""
+    from physics_informed_image_segmentation_tpu_torch.ops import layer_norm as LN
+
+    rows_out = {}
+    for label, c, rows, dtype, out in LN_TIMED:
+        x, weight, bias, dy = ln_case(c, rows, dtype, out, seed=600)
+        weight.requires_grad_(True)
+        bias.requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+
+        def fwd():
+            return LN.LayerNormFn.apply(xg, weight, bias, 1e-5, out)
+
+        y = fwd()
+        saved = y.grad_fn
+
+        def bwd():
+            return saved.apply(dy)
+
+        def plain_fwd():
+            return LN.layer_norm_fwd_plain(x, weight.detach(), bias.detach(), 1e-5, out)
+
+        _, mean, rstd = plain_fwd()
+
+        def plain_bwd():
+            return LN.layer_norm_bwd_plain(dy, x, mean, rstd, weight.detach())
+
+        def library_fwd():
+            with torch.autocast("cuda", torch.bfloat16):
+                z = F.layer_norm(xg, (c,), weight, bias, 1e-5)
+                return z.to(out)
+
+        z = library_fwd()
+
+        def library_bwd():
+            return torch.autograd.grad(z, [xg, weight, bias], dy, retain_graph=True)
+
+        row = {"fwd_ms": time_cuda(fwd), "bwd_ms": time_cuda(bwd),
+               "plain_fwd_ms": time_cuda(plain_fwd), "plain_bwd_ms": time_cuda(plain_bwd),
+               "library_fwd_ms": time_cuda(library_fwd), "library_bwd_ms": time_cuda(library_bwd)}
+        floor_f, floor_b = ln_floor_bytes(x.numel(), x.element_size(), dy.element_size())
+        row["floor_fwd_ms"] = floor_f / PEAK_BYTES_PER_S * 1e3
+        row["floor_bwd_ms"] = floor_b / PEAK_BYTES_PER_S * 1e3
+        row["fwd_share"] = row["floor_fwd_ms"] / row["fwd_ms"]
+        row["bwd_share"] = row["floor_bwd_ms"] / row["bwd_ms"]
+        rows_out[label] = row
+        print(f"LayerNorm {label} ({rows}, {c}) {str(dtype)[6:]}->{str(out)[6:]}: forward "
+              f"{row['fwd_ms']:.3f} ms ({100 * row['fwd_share']:.1f}% of its byte floor), backward "
+              f"{row['bwd_ms']:.3f} ms ({100 * row['bwd_share']:.1f}%); plain forward "
+              f"{row['plain_fwd_ms']:.3f}, backward {row['plain_bwd_ms']:.3f} ms; autocast's "
+              f"layer_norm forward {row['library_fwd_ms']:.3f}, backward "
+              f"{row['library_bwd_ms']:.3f} ms")
+        del x, dy, xg, y, saved, z, mean, rstd
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows_out
+
+
 def drive_probe() -> dict:
     """The probe's path at full width through ``utils/conv_probe.py``:
     (8,128,128,64) bf16, every row; returns its results and K4's launch
@@ -2941,8 +3152,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    built = build_all(["physics_sums", "adamw", "padded_physics", "conv3x3", "group_norm"],
-                      verbose=True)
+    built = build_all(["physics_sums", "adamw", "padded_physics", "conv3x3", "group_norm",
+                       "layer_norm"], verbose=True)
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
     errors = check_kernels()
@@ -2975,6 +3186,8 @@ def main() -> int:
     errors.update(check_k4())
     errors.update(check_group_norm())
     gn_counts = drive_resnet_norms()
+    errors.update(check_layer_norm())
+    ln_counts = drive_swin_norms()
     parallel = drive_parallel_paths(smi)
     streaming = drive_streaming(smi)
     probe = drive_probe()
@@ -2988,6 +3201,7 @@ def main() -> int:
     k4_times = time_k4()
     k2_times = time_adamw()
     gn_times = time_group_norm()
+    ln_times = time_layer_norm()
     rates = {name: [] for name in ("adamw", "pallas_adamw")}
     for name in ("adamw", "pallas_adamw", "pallas_adamw", "adamw"):
         rates[name].append(time_training(name))
@@ -3076,6 +3290,17 @@ def main() -> int:
             "bound_by": "bytes", "plain_ms": None,
             "library_ms": gn_root[f"plain_{direction}_ms"]})
     print(json.dumps({"group_norm_ms_per_call": gn_times, "card": smi}))
+    ln_x4 = ln_times["x4 expand"]
+    for direction in ("fwd", "bwd"):
+        kernels.append({
+            "name": f"layer_norm_{direction}", "route": "cuda",
+            "source": f"{PKG}/csrc/layer_norm.cu",
+            "replaces": None, "launches": ln_counts[f"layer_norm_{direction}"],
+            "max_abs_err": errors[f"layer_norm_{direction}"],
+            "ms": ln_x4[f"{direction}_ms"], "bound_ms": ln_x4[f"floor_{direction}_ms"],
+            "bound_by": "bytes", "plain_ms": ln_x4[f"plain_{direction}_ms"],
+            "library_ms": ln_x4[f"library_{direction}_ms"]})
+    print(json.dumps({"layer_norm_ms_per_call": ln_times, "card": smi}))
     mres = parallel["halo"]["res"]
     print(json.dumps({"megapixel_step": {
         "image": mres["image"], "base_channels": 64, "precision": "bf16", "batch": 1,

@@ -55,11 +55,16 @@ which return the bias's gradient too, so the table learns through the
 fused backward; a call the math backend would take raises instead.  On the
 CPU, where the fused backends refuse a bias that needs a gradient, the
 same function is one plain path with an explicit softmax.  Under bf16
-autocast the LayerNorms and the residual stream stay float32 (the outputs
-of ``reduction`` and ``concat_back_dim``, which become the stream, are
-cast back to it); a norm's output that only a linear reads is cast to the
-compute type before it is rolled and partitioned, as the linear would
-cast it.
+autocast the residual stream stays float32 (the outputs of ``reduction``
+and ``concat_back_dim``, which become the stream, are cast back to it).
+The 38 LayerNorms are ``ops.layer_norm.LayerNorm``: on the card one
+hand-written kernel each way, which reads the input in its own type,
+keeps float32 statistics and writes the output in the type its site's
+role gives: float32 where it becomes the stream (the patch embedding's
+norm, ``PatchExpand``'s), the compute type where only a linear or the
+output convolution reads it (``norm1``, ``norm2``, ``PatchMerging``'s,
+``norm``, ``norm_up``, the ×4 expand's), rounded once, where the linear
+would round it; on the CPU the kernels' plain version.
 
 Departures from the published model: ``out_channels`` logits through a
 sigmoid (the published head gives ``num_classes`` to a softmax); random
@@ -88,6 +93,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import sdpa_kernel
 
+from ..ops.layer_norm import LayerNorm
 from ..utils.profiling import span
 from .transunet import FUSED_ATTENTION, Mlp
 
@@ -132,12 +138,6 @@ def shift_mask(side: int, w: int, shift: int) -> torch.Tensor:
     labels = window_partition(regions, w).view(-1, w * w)
     diff = labels[:, None, :] - labels[:, :, None]
     return torch.zeros_like(diff).masked_fill_(diff != 0, -100.0)
-
-
-def _compute_dtype(x: torch.Tensor) -> torch.dtype:
-    """The type autocast gives a linear's input on ``x``'s device, else ``x``'s."""
-    dev = x.device.type
-    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
 
 
 def _stream(y: torch.Tensor) -> torch.Tensor:
@@ -209,9 +209,9 @@ class SwinTransformerBlock(nn.Module):
             window_size, shift_size = resolution, 0
         self.resolution, self.window_size, self.shift_size = resolution, window_size, shift_size
         self.drop_path = drop_path
-        self.norm1 = nn.LayerNorm(dim)
+        self.norm1 = LayerNorm(dim, out="compute")
         self.attn = WindowAttention(dim, window_size, num_heads)
-        self.norm2 = nn.LayerNorm(dim)
+        self.norm2 = LayerNorm(dim, out="compute")
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         mask = shift_mask(resolution, window_size, shift_size) if shift_size else None
         self.register_buffer("attn_mask", mask)
@@ -220,7 +220,6 @@ class SwinTransformerBlock(nn.Module):
         side, w, s = self.resolution, self.window_size, self.shift_size
         b, length, c = x.shape
         h = self.norm1(x)
-        h = h.to(_compute_dtype(h))
         windows = (side // w) ** 2
         with span("piis.window"):
             h = h.view(b, side, side, c)
@@ -246,7 +245,7 @@ class PatchMerging(nn.Module):
         super().__init__()
         self.resolution = resolution
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
-        self.norm = nn.LayerNorm(4 * dim)
+        self.norm = LayerNorm(4 * dim, out="compute")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, side², C) → (B, side²/4, 2C)."""
@@ -261,14 +260,18 @@ class PatchMerging(nn.Module):
 class PatchExpand(nn.Module):
     """``dim_scale`` 2: Linear(C, 2C), a 2×2 rearrangement to C/2 channels
     and LayerNorm(C/2); ``dim_scale`` 4 (``FinalPatchExpand_X4``):
-    Linear(C, 16C), a 4×4 rearrangement to C channels and LayerNorm(C)."""
+    Linear(C, 16C), a 4×4 rearrangement to C channels and LayerNorm(C).
+    ``norm_out`` is the norm's role: ``"stream"`` where the output joins
+    the skip and the stream, ``"compute"`` where only the output
+    convolution reads it."""
 
-    def __init__(self, resolution: int, dim: int, dim_scale: int = 2):
+    def __init__(self, resolution: int, dim: int, dim_scale: int = 2,
+                 norm_out: str = "stream"):
         super().__init__()
         self.resolution, self.dim_scale = resolution, dim_scale
         out = dim // 2 if dim_scale == 2 else dim
         self.expand = nn.Linear(dim, out * dim_scale ** 2, bias=False)
-        self.norm = nn.LayerNorm(out)
+        self.norm = LayerNorm(out, out=norm_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, side², C) → (B, (scale·side)², C_out): 'b h w (p1 p2 c) -> b
@@ -283,7 +286,7 @@ class PatchExpand(nn.Module):
 
 class FinalPatchExpand_X4(PatchExpand):  # noqa: N801 (the published name)
     def __init__(self, resolution: int, dim: int):
-        super().__init__(resolution, dim, dim_scale=4)
+        super().__init__(resolution, dim, dim_scale=4, norm_out="compute")
 
 
 class BasicLayer(nn.Module):
@@ -317,10 +320,12 @@ class PatchEmbed(nn.Module):
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int):
         super().__init__()
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
-        self.norm = nn.LayerNorm(embed_dim)
+        self.norm = LayerNorm(embed_dim, out="stream")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(self.proj(x).flatten(2).transpose(1, 2))
+        # the norm reads rows of embed_dim: one copy of the convolution's
+        # (bf16 under autocast) output into token order
+        return self.norm(self.proj(x).flatten(2).transpose(1, 2).contiguous())
 
 
 class SwinTransformerSys(nn.Module):
@@ -356,8 +361,8 @@ class SwinTransformerSys(nn.Module):
                 self.layers_up.append(BasicLayer(dim, res, depths[j], num_heads[j], window_size,
                                                  mlp_ratio, rates(j), upsample=i < stages - 1))
                 self.concat_back_dim.append(nn.Linear(2 * dim, dim))
-        self.norm = nn.LayerNorm(embed_dim * 2 ** (stages - 1))
-        self.norm_up = nn.LayerNorm(embed_dim)
+        self.norm = LayerNorm(embed_dim * 2 ** (stages - 1), out="compute")
+        self.norm_up = LayerNorm(embed_dim, out="compute")
         self.up = FinalPatchExpand_X4(side, embed_dim)
         self.output = nn.Conv2d(embed_dim, num_classes, 1, bias=False)
 

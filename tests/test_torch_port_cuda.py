@@ -1243,10 +1243,165 @@ def test_swin_window_attention_runs_fused_and_learns_its_bias(cuda, autocast, to
 
 
 def test_swin_window_attention_has_no_math_fallback(cuda):
-    """Where no fused backend takes the call (float64 on the card), the block
-    raises instead of running the math backend's (windows, heads, N, N)
-    scores."""
+    """Where no fused backend takes the call (float64 on the card), the
+    window attention raises instead of running the math backend's (windows,
+    heads, N, N) scores.  (The whole block raises before it: its first
+    LayerNorm's kernels take no float64.)"""
     block = _swin_block().to(cuda)
     x = torch.randn(2, 56 * 56, 96, device=cuda, dtype=torch.float64)
-    with pytest.raises(RuntimeError, match="kernel"):
+    with pytest.raises(ValueError, match="type"):
         block(x, None, {"calls": 0, "pairs": 0}, {"windows": 0, "shifted": 0})
+    windows = torch.randn(2 * 64, 49, 96, device=cuda, dtype=torch.float64)
+    bias = block.attn.bias(block.attn_mask, 64, torch.float64)
+    with pytest.raises(RuntimeError, match="kernel"):
+        block.attn(windows, bias, 2, {"calls": 0, "pairs": 0})
+
+
+# ---- LayerNorm (ops/layer_norm.py, csrc/layer_norm.cu) ----
+
+def _swin_norm_sites(device, batch=8, size=896):
+    """Every LayerNorm call of Swin-Unet at ``size``² under bf16 autocast,
+    as ``(C, rows at batch, input type, output type)`` in call order:
+    recorded from the model itself (a batch-1 no-grad forward)."""
+    from physics_informed_image_segmentation_tpu_torch.models import SwinUnet
+    from physics_informed_image_segmentation_tpu_torch.ops import layer_norm as LN
+
+    sites, real = [], LN.LayerNormFn.apply
+
+    def record(x, weight, bias, eps, out_dtype):
+        sites.append((x.shape[-1], batch * (x.numel() // x.shape[-1]), x.dtype, out_dtype))
+        return real(x, weight, bias, eps, out_dtype)
+
+    model = SwinUnet(img_size=size).to(device).eval()
+    LN.LayerNormFn.apply = record
+    try:
+        with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+            model(torch.rand(1, 1, size, size, device=device))
+    finally:
+        LN.LayerNormFn.apply = real
+    return sites
+
+
+def _ln_operands(c, rows, dtype, out, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    # a stream's rows differ in offset and scale
+    x = (torch.randn(rows, c, device=device, generator=g)
+         * (0.5 + torch.rand(rows, 1, device=device, generator=g))
+         + torch.randn(rows, 1, device=device, generator=g)).to(dtype)
+    weight = 1.0 + 0.2 * torch.randn(c, device=device, generator=g)
+    bias = 0.1 * torch.randn(c, device=device, generator=g)
+    dy = torch.randn(rows, c, device=device, generator=g).to(out)
+    return x, weight, bias, dy
+
+
+def _ln_kernel(x, weight, bias, dy, out):
+    from physics_informed_image_segmentation_tpu_torch.ops.layer_norm import LayerNormFn
+
+    ins = [t.clone().requires_grad_(True) for t in (x, weight, bias)]
+    y = LayerNormFn.apply(*ins, 1e-5, out)
+    return (y.detach(), *torch.autograd.grad(y, ins, dy))
+
+
+def test_layer_norm_kernel_at_every_swin_site(cuda):
+    """The kernels against their plain version on the card, in the sites'
+    types, at the shape of each of the 38 norms of an 896² step, batch 8
+    (13 distinct sites), forward and every gradient.  Tolerances: two
+    float32 orders of the same sums, 1e-5 of the largest plus 1e-5
+    relative, and one bf16 step (2^-7 relative) where a bf16 y or dx may
+    round the other way."""
+    from physics_informed_image_segmentation_tpu_torch.ops import layer_norm as LN
+
+    sites = _swin_norm_sites(cuda)
+    assert len(sites) == 38
+    for i, (c, rows, dtype, out) in enumerate(dict.fromkeys(sites)):
+        x, weight, bias, dy = _ln_operands(c, rows, dtype, out, cuda, seed=200 + i)
+        got = _ln_kernel(x, weight, bias, dy, out)
+        y, mean, rstd = LN.layer_norm_fwd_plain(x, weight, bias, 1e-5, out)
+        want = (y, *LN.layer_norm_bwd_plain(dy, x, mean, rstd, weight))
+        assert [t.dtype for t in got] == [t.dtype for t in want] == [out, dtype, torch.float32,
+                                                                     torch.float32]
+        for name, k, p in zip(("y", "dx", "dgamma", "dbeta"), got, want):
+            rtol = 2.0 ** -7 if k.dtype == torch.bfloat16 else 1e-5
+            ok, err = _gn_close(k, p.double(), rtol, 1e-5)
+            assert ok, ((c, rows, dtype, out), name, err)
+        del x, dy, got, want, y, mean, rstd
+        torch.cuda.empty_cache()
+
+
+def test_layer_norm_kernel_repeats_bit_for_bit(cuda):
+    """Same inputs, same bits, the parameters' gradients too (no atomics),
+    at the x4 expand's site (6.4 M rows of 96) and at the widest (1536)."""
+    for c, rows, dtype, out in ((96, 8 * 896 * 896, torch.bfloat16, torch.bfloat16),
+                                (1536, 8 * 28 * 28, torch.float32, torch.bfloat16)):
+        x, weight, bias, dy = _ln_operands(c, rows, dtype, out, cuda, seed=c)
+        first, second = (_ln_kernel(x, weight, bias, dy, out) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        del x, dy, first, second
+
+
+def test_layer_norm_kernel_raises_on_what_it_does_not_take(cuda):
+    """float64, strided rows, a misaligned view, a width not built, bf16
+    gamma: ``ValueError`` with the refusal's reason, never PyTorch's
+    ``layer_norm``; a strided or misaligned gradient is made contiguous."""
+    from physics_informed_image_segmentation_tpu_torch.ops import layer_norm as LN
+
+    x, weight, bias, dy = _ln_operands(96, 64, torch.float32, torch.bfloat16, cuda, seed=3)
+    misaligned = torch.empty(x.numel() + 8, device=cuda)[1:1 + x.numel()].view(x.shape)
+    narrow = _ln_operands(48, 64, torch.float32, torch.bfloat16, cuda, seed=4)
+    for args, reason in (((x.double(), weight, bias), "type"),
+                         ((x.view(8, 8, 96).transpose(0, 1), weight, bias), "contiguous"),
+                         ((misaligned.copy_(x), weight, bias), "16-byte aligned"),
+                         (narrow[:3], "width"),
+                         ((x, weight.bfloat16(), bias.bfloat16()), "gamma and beta")):
+        assert LN.kernel_refusals(*args, torch.bfloat16)
+        with pytest.raises(ValueError, match=reason):
+            LN.LayerNormFn.apply(*args, 1e-5, torch.bfloat16)
+    with pytest.raises(ValueError, match="type"):
+        LN.LayerNormFn.apply(x, weight, bias, 1e-5, torch.float64)
+    aligned = _ln_kernel(x, weight, bias, dy, torch.bfloat16)
+    offset = torch.empty(dy.numel() + 8, dtype=dy.dtype, device=cuda)[1:1 + dy.numel()]
+    shifted = _ln_kernel(x, weight, bias, offset.view(dy.shape).copy_(dy), torch.bfloat16)
+    strided = _ln_kernel(x, weight, bias, dy.t().contiguous().t(), torch.bfloat16)
+    for a, b, c in zip(aligned, shifted, strided):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_swin_unet_norms_take_the_kernels(cuda):
+    """A bf16 forward and backward of Swin-Unet at 896² (batch 2): all 38
+    norms take the kernels each way (38 and 38 launches), a no-grad forward
+    38 and 0, and PyTorch's LayerNorm never runs (no ``native_layer_norm``
+    host operation, no ``vectorized_layer_norm_kernel``).  Prints the
+    step's peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from physics_informed_image_segmentation_tpu_torch.models import SwinUnet
+    from physics_informed_image_segmentation_tpu_torch.ops import layer_norm as LN
+
+    model = SwinUnet(img_size=896).to(cuda).train()
+    images = torch.rand(2, 1, 896, 896, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+
+    def step():
+        with torch.autocast("cuda", torch.bfloat16):
+            out = model(images, torch.Generator(cuda).manual_seed(1))
+        torch.autograd.grad(out.mean(), list(model.parameters()))
+
+    step()
+    LN.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert LN.launch_counts == {"layer_norm_fwd": 38, "layer_norm_bwd": 38}
+    host = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU}
+    device = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert not [n for n in host if "layer_norm" in n], host
+    assert not [n for n in device if "vectorized_layer_norm" in n or "GammaBeta" in n]
+    assert any("layer_norm_fwd<" in n for n in device)
+    assert any("layer_norm_bwd_params" in n for n in device)
+    LN.reset_launch_counts()
+    with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+        model.eval()(images)
+    assert LN.launch_counts == {"layer_norm_fwd": 38, "layer_norm_bwd": 0}
+    print(json.dumps({"swinunet_896_b2_step_peak_gib": peak}))
